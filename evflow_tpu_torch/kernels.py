@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels.
 
-All sources in `csrc/` are compiled by nvcc for sm_90a into ONE shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), loaded with ctypes. The build runs at first use, into the
-repository's `build/` directory, under a file name keyed by the hash of the
-sources and flags: an edited source is rebuilt, an unchanged one is loaded.
+All sources in `csrc/` are compiled by nvcc for sm_90a, one nvcc process
+per source, all started together, and linked into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), loaded
+with ctypes. The build runs at first use, into the repository's `build/`
+directory, under a file name keyed by the hash of the sources and flags: an
+edited source is rebuilt, an unchanged one is loaded.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a nonzero code and counts the
@@ -24,10 +25,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("efast_stencil.cu", "assign_manhattan.cu", "cluster_stats.cu")
+SOURCES = ("efast_stencil.cu", "assign_manhattan.cu", "cluster_stats.cu",
+           "aeclustering_exact.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "evflow_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures, without the trailing stream pointer every entry point takes
@@ -40,6 +42,9 @@ _SIGNATURES = {
     "assign_manhattan": [_P, _P, _I, _P, _P, _I, _F, _P, _P],
     # labels, x, y, n, c, alpha, out
     "cluster_stats": [_P, _P, _P, _I, _I, _F, _P],
+    # scal, ev, ring_in, ivec, mu_in, m, c, radius, alpha, one_minus,
+    # ring_out, ivec_out, mu_out, scal_out
+    "aeclustering_exact": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }
 
 # Launches per kernel. A wrapper adds one where it launches its kernel and
@@ -73,20 +78,33 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is built already.
-    nvcc's output (including ptxas register/shared-memory use) is kept
-    beside the library as a .log file."""
+    """Compile csrc/*.cu into the shared library unless it is built already:
+    one nvcc per source in parallel, then one link. nvcc's output (including
+    ptxas register/shared-memory use) is kept beside the library as a .log
+    file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed = ["link"]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{''.join(logs)[-4000:]}")
     os.replace(tmp, out)
     return out
 

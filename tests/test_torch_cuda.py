@@ -18,8 +18,11 @@ from evflow_tpu.config import (DEFAULT, ClusterConfig, EFastConfig, NMSConfig,
                                SensorConfig, SliceConfig, TrackerConfig)
 from evflow_tpu.io import slice_by_count, synthetic
 from evflow_tpu_torch import interop, kernels
+from evflow_tpu_torch.models import aeclustering as ae, aeclustering_kernel as aek
 from evflow_tpu_torch.models import fastcluster, pipeline
 from evflow_tpu_torch.ops import cluster_kernels as ck, efast
+
+from test_torch_streams import STREAMS, drifting_blobs
 
 pytestmark = pytest.mark.cuda
 
@@ -107,8 +110,51 @@ def test_full_scan_on_card_matches_cpu(cuda):
 
     kernels.reset_launches()
     (gcl, gco), (gclo, gcoo) = scan(cuda)
-    assert all(v == 6 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert kernels.LAUNCHES == {"efast_stencil": 6, "assign_manhattan": 6,
+                                "cluster_stats": 6, "aeclustering_exact": 0}, kernels.LAUNCHES
     (wcl, wco), (wclo, wcoo) = scan("cpu")
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
     interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
     assert int(gcoo.num_corners.sum()) > 0
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_exact_kernel_matches_plain(cuda, name):
+    """The update_slice_pallas counterpart on the card against the plain
+    update_slice on the CPU, every slice, every AEState field bit-equal."""
+    make, cfg = STREAMS[name]
+    ks, ps = ae.init_state(cfg, device=cuda), ae.init_state(cfg)
+    before = kernels.LAUNCHES["aeclustering_exact"]
+    slices = 0
+    for s, arrays in enumerate(make()):
+        ks = aek.update_slice_kernel(ks, *[torch.as_tensor(a, device=cuda) for a in arrays], cfg)
+        ps = ae.update_slice(ps, *[torch.as_tensor(a) for a in arrays], cfg)
+        torch.cuda.synchronize()
+        interop.assert_trees_close(ks, ps, rtol=0, atol=0, what=f"{name} slice {s}")
+        slices += 1
+    assert kernels.LAUNCHES["aeclustering_exact"] == before + slices
+
+
+@pytest.mark.parametrize("alpha", [0.5, 0.8])
+def test_exact_kernel_default_widths(cuda, alpha):
+    """C = 128, M = 1024 (dynamic shared memory of 20 KB), and C = 256,
+    M = 4096 (80 KB: above the 48 KB default), on the drifting blobs."""
+    for c, m in ((128, 1024), (256, 4096)):
+        cfg = ClusterConfig(sz_buffer=800, radius=20.0, min_n=3, alpha=alpha,
+                            max_clusters=c, max_members=m)
+        ks, ps = ae.init_state(cfg, device=cuda), ae.init_state(cfg)
+        for arrays in drifting_blobs(seed=1, n_slices=4, n=1500):
+            ks = aek.update_slice_kernel(ks, *[torch.as_tensor(a, device=cuda)
+                                               for a in arrays], cfg)
+            ps = ae.update_slice(ps, *[torch.as_tensor(a) for a in arrays], cfg)
+        interop.assert_trees_close(ks, ps, rtol=0, atol=0, what=f"C={c} M={m}")
+
+
+def test_exact_kernel_limits(cuda):
+    x = torch.zeros(8, dtype=torch.int32, device=cuda)
+    v = torch.ones(8, dtype=torch.bool, device=cuda)
+    for cfg in (ClusterConfig(max_clusters=aek.MAX_CLUSTERS + 1),
+                ClusterConfig(max_members=aek.MAX_MEMBERS + 1),
+                ClusterConfig(kappa=2)):
+        with pytest.raises(ValueError):
+            aek.update_slice_kernel(ae.init_state(cfg, device=cuda), x, x, x, x, v, cfg)

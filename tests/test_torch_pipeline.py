@@ -214,12 +214,16 @@ def test_compat_stride2_matches_jax():
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.ClusterFlowPipeline(CFG, mode="exact").run(_scene(1))
-    q8 = dataclasses.replace(CFG, efast=dataclasses.replace(CFG.efast, micro_slices=8))
+    """The snapshot-stack q>1 backend is not ported; micro_dense takes
+    precedence over it, as in JAX."""
+    stack = dataclasses.replace(CFG, efast=dataclasses.replace(
+        CFG.efast, micro_slices=8, micro_stack=True))
     x, y, t, v = [torch.as_tensor(a[0]) for a in _slices(1)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.corner_track_step(pipeline.init_corner_state(q8), x, y, t, v, q8)
+        pipeline.corner_track_step(pipeline.init_corner_state(stack), x, y, t, v, stack)
+    dense = dataclasses.replace(stack, efast=dataclasses.replace(stack.efast,
+                                                                 micro_dense=True))
+    pipeline.corner_track_step(pipeline.init_corner_state(dense), x, y, t, v, dense)
 
 
 def test_port_imports_no_jax():
