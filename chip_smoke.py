@@ -6,9 +6,11 @@ Phases, one line each:
      kernels in evflow_tpu_torch/csrc;
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and on real inputs (a few slices into the stream below):
-     the eFAST stencil, the two fastcluster kernels, and the exact
+     the eFAST stencil, the two fastcluster kernels (cluster_stats also
+     bit-equal to itself over two calls), and the exact
      AEClustering engine (2 DEFAULT slices from the same state, every
-     AEState field equal);
+     AEState field equal); then the host cost of a wrapper's pieces (the
+     stream handle, the output allocations, the checks, a launch);
   3. the port's main path, pipeline.full_scan at the DEFAULT configuration
      (1280x720 SAE, 16384 events per slice, 128 clusters, 8192 eFAST
      candidates, NMS capacity 512, 256 tracks, q=1) over a 32-slice
@@ -31,20 +33,28 @@ Phases, one line each:
      `ms`, the wrapper's time per eager call by CUDA events around
      back-to-back calls, host included, and `device_ms`, its device time
      per call from a CUDA-graph replay of the wrapper. The plain versions
-     are timed as `ms` is, the exact engine's over 2 slices.
+     are timed as `ms` is, the exact engine's over 2 slices. Beside each
+     kernel, its launch floor: the graph-replay device time of an empty
+     kernel (csrc/launch_floor.cu) at the kernel's grid.
 Then one JSON line of per-kernel results and, last, the status line
 {"ok": true, "device": {...}}. A kernel's `launches` is its count over the
 path it belongs to (full_scan at q=1, or the exact path). Its `bound_ms` is
 the least time the card could take for the function's work on the phase-2
 input: the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
-type, both counted from this run's shapes and data (`kernel_bounds`). The
-exact engine is serial, so it also gets `latency_floor_ms`: its events
-times the shortest dependent chain per event. Its `library_ms` is null: no
+type, both counted from this run's shapes and data (`kernel_bounds`). Its
+`launch_floor_ms` is the launch floor above: below it no kernel at that
+grid can go, however small its bound. The exact engine is serial, so it
+also gets `latency_floor_ms`: its events times the shortest dependent
+chain per event. Its `library_ms` is null: no
 single PyTorch call computes any of the four functions.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It exits nonzero on any failure, and at once when no CUDA device is found.
+`python3 chip_smoke.py --kernels-only` stops after phase 2 and prints the
+kernels' times as one JSON line: copied into another checkout of the port
+(an earlier commit, unpacked beside it) and run there, it times that
+tree's kernels by the same method, in the same call.
 """
 
 import contextlib
@@ -95,11 +105,13 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of fn() per call, without the host's time per call: fn
-    is captured once in a CUDA graph (after warm-up calls on a side stream,
-    as capture requires) and the graph is replayed `reps` times between
-    CUDA events."""
+def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of fn() per call, without the host's time per call:
+    `calls` back-to-back calls are captured in one CUDA graph (after
+    warm-up calls on a side stream, as capture requires) and the graph is
+    replayed `reps` times between CUDA events. One graph of many calls
+    leaves out the graph's own launch, which a graph of one call pays per
+    call (about 5 us on the H100)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -108,7 +120,8 @@ def device_ms(fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -117,7 +130,7 @@ def device_ms(fn, reps: int = 20) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def timed(fn, plain) -> dict:
@@ -125,6 +138,47 @@ def timed(fn, plain) -> dict:
     host included (CUDA events around back-to-back calls), and the
     wrapper's device time per call (CUDA graph replay)."""
     return dict(ms=cuda_ms(fn), plain_ms=cuda_ms(plain), device_ms=device_ms(fn))
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host time of fn() per call in microseconds over back-to-back calls,
+    after warm-up calls."""
+    for _ in range(50):
+        fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e6
+
+
+def wrapper_host_costs(x, y, mu, alive, kernels, ck) -> dict:
+    """Host microseconds per call of the pieces of a kernel wrapper: the
+    stream handle read two ways (after checking that the one the launches
+    read is PyTorch's current stream), the outputs as two allocations or as
+    views of one, the assignment wrapper without its launch (N = 0), and a
+    launch of the empty kernel."""
+    idx = x.get_device()
+    for st in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(st):
+            assert torch.accelerator.current_stream(idx).native_handle == st.cuda_stream
+    n, dev = x.shape[0], x.device
+
+    def one_buffer():
+        buf = torch.empty((2, n), dtype=torch.int32, device=dev)
+        return buf[0], buf[1].view(torch.float32)
+
+    x0, y0 = x[:0], y[:0]
+    return {
+        "cuda.current_stream().cuda_stream": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "accelerator.current_stream(i).native_handle": host_us(
+            lambda: torch.accelerator.current_stream(idx).native_handle),
+        "two empty": host_us(lambda: (torch.empty(n, dtype=torch.int32, device=dev),
+                                      torch.empty(n, dtype=torch.float32, device=dev))),
+        "one empty, two views": host_us(one_buffer),
+        "assign_manhattan N=0": host_us(lambda: ck.assign_manhattan(x0, y0, mu, alive, 20.0)),
+        "launch_floor": host_us(lambda: kernels.launch_floor(1, 32, 1)),
+    }
 
 
 # cluster floats: fp order of the weighted sums; tracker floats: order of
@@ -175,11 +229,13 @@ def alive_per_event(state, lanes, cfg) -> int:
     return total
 
 
-def kernel_bounds(new_sae, act, band, cfg, x, ae_state, lanes, n_clusters) -> dict:
+def kernel_bounds(new_sae, act, band, cfg, x, alive, ae_state, lanes, n_clusters) -> dict:
     """bound_ms of each kernel on the inputs phase 2 hands it (see the
     module docstring): the stencil counts the rings of this run's active
-    tiles that reach each stage of its test; the exact engine tests each
-    valid lane against the clusters alive at that event."""
+    tiles that reach each stage of its test; the assignment tests each
+    event against the clusters alive at the slice's start; the exact
+    engine tests each valid lane against the clusters alive at that
+    event."""
     from evflow_tpu_torch.ops import efast
     h, w = new_sae.shape
     e = cfg.efast
@@ -204,6 +260,7 @@ def kernel_bounds(new_sae, act, band, cfg, x, ae_state, lanes, n_clusters) -> di
     stencil_ops = counts[0] * rej3 + counts[1] * sc3 + counts[2] * rej4 + counts[3] * sc4
     stencil_bytes = n_tiles * (band + 8) * (efast.WTILE + 8) * 4 + h * w + act.numel()
     n, c = x.shape[0], n_clusters
+    n_alive = int(alive.sum())
     m = cfg.cluster.max_members
     n_ev = int(lanes[4].sum())
     tests = alive_per_event(ae_state, lanes, cfg.cluster)
@@ -220,13 +277,29 @@ def kernel_bounds(new_sae, act, band, cfg, x, ae_state, lanes, n_clusters) -> di
             f"{n_tiles} active tiles' halos read, the mask written; rings tested, "
             f"scanned, passing circle3, scanned on circle4: {counts}"),
         "assign_manhattan": bound(
-            16 * n + 9 * c, 6 * n * c, 0,
+            16 * n + 9 * c, 6 * n * n_alive, 0,
             f"x, y read, label and distance written for {n} events; "
-            f"{n} x {c} distances of 6 ops"),
+            f"{n} x {n_alive} distances to the alive means, 6 ops each"),
         "cluster_stats": bound(
             12 * n + 20 * c, 20 * n, 0,
             f"label, x, y read for {n} events, (C, 5) written; 20 ops per event"),
         "aeclustering_exact": exact,
+    }
+
+
+def launch_grids(h, w, band, n) -> dict:
+    """(blocks, threads, cluster size) of each kernel's launch at phase 2's
+    shapes, as its source's host entry point computes them."""
+    from evflow_tpu_torch.ops import efast
+    return {
+        # efast_stencil.cu: (tile columns, bands, row groups of 2 rows) x 256
+        "efast_stencil": (-(-w // efast.WTILE) * -(-h // band) * -(-band // 2), 256, 1),
+        # assign_manhattan.cu: one warp per CTA, 2 events per thread
+        "assign_manhattan": (-(-n // 64), 32, 1),
+        # cluster_stats.cu: one thread-block cluster of 8 CTAs x 256
+        "cluster_stats": (8, 256, 8),
+        # aeclustering_exact.cu: one warp
+        "aeclustering_exact": (1, 32, 1),
     }
 
 
@@ -238,7 +311,11 @@ def to_host(tree):
     return tree.cpu()
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = argv == ["--kernels-only"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -323,13 +400,18 @@ def main() -> int:
     torch.cuda.synchronize()
     assert torch.equal(st_k[:, 0], st_p[:, 0]), "cluster_stats: counts differ"
     torch.testing.assert_close(st_k, st_p, rtol=1e-5, atol=1e-3)
+    st_again = ck.cluster_stats(labels, px, py, alpha, c)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k, st_again), "cluster_stats: two calls differ"
     results["cluster_stats"] = dict(max_abs_err=float((st_k - st_p).abs().max()), **timed(
         lambda: ck.cluster_stats(labels, px, py, alpha, c),
         lambda: ck.cluster_stats_plain(labels, px, py, alpha, c)))
     print(f"kernels vs plain: efast mask bit-equal ({corners_full} corner pixels, "
           f"{int(act.sum())}/{act.numel()} tiles active), assign_manhattan "
-          f"bit-equal ({int((lab_k >= 0).sum())} assigned), cluster_stats counts "
-          f"exact, max |err| {results['cluster_stats']['max_abs_err']:.3g}", flush=True)
+          f"bit-equal ({int((lab_k >= 0).sum())} assigned, {int(cl.alive.sum())} clusters "
+          f"alive), cluster_stats counts exact, max |err| "
+          f"{results['cluster_stats']['max_abs_err']:.3g}, bit-equal over two calls "
+          f"({int((st_k[:, 0] > 0).sum())} clusters with members)", flush=True)
 
     # the exact engine: 3 slices with the kernel, then 2 more from that state
     # once with the kernel and once with the plain version, both on the card
@@ -361,11 +443,25 @@ def main() -> int:
     results["aeclustering_exact"] = dict(
         max_abs_err=mu_err, ms=cuda_ms(exact_call), plain_ms=plain_exact_ms,
         device_ms=device_ms(exact_call))
-    bounds = kernel_bounds(new_sae, act, band, cfg, x, ae0, lanes[3], c)
+    bounds = kernel_bounds(new_sae, act, band, cfg, x, cl.alive, ae0, lanes[3], c)
+    for name, (blocks, threads, size) in launch_grids(h, w, band, n).items():
+        bounds[name]["grid"] = (blocks, threads, size)
+        if hasattr(kernels, "launch_floor"):   # absent from trees before it
+            bounds[name]["launch_floor_ms"] = device_ms(
+                lambda: kernels.launch_floor(blocks, threads, size))
     print(f"exact engine vs plain, slices 3-4 from the same state: every AEState "
           f"field bit-equal, mu included; unique lanes per slice {n_lanes}; live clusters "
           f"{int(ae_k.alive.sum())}, overflow {int(ae_k.overflow)}, members "
           f"{int((ae_k.mcid >= 0).sum())}", flush=True)
+    if kernels_only:
+        print(json.dumps({"kernel_times": {
+            name: dict(r, launch_floor_ms=bounds[name].get("launch_floor_ms"))
+            for name, r in results.items()}}))
+        return 0
+    host = wrapper_host_costs(x, y, cl.mu, cl.alive, kernels, ck)
+    torch.cuda.synchronize()
+    print("wrapper host costs, us per call: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host.items()), flush=True)
 
     def teacher_forced(c, slices):
         """The card's full_scan step against a plain CPU step from the same
@@ -505,12 +601,14 @@ def main() -> int:
         for label, (k, p, t) in scan_ms.items())
         + f"; exact path kernel {exact_kernel_ms} over {N_SLICES} slices, plain "
         f"{exact_plain_ms:.3f} over {EXACT_PLAIN_SLICES}; per kernel ms per eager call "
-        "(plain; device ms by graph replay): "
-        + ", ".join(f"{k} {r['ms']:.4f} ({r['plain_ms']:.4f}; {r['device_ms']:.4f})"
-                    for k, r in results.items()),
+        "(plain; device ms by graph replay; host ms = eager - device): "
+        + ", ".join(f"{k} {r['ms']:.4f} ({r['plain_ms']:.4f}; {r['device_ms']:.4f}; "
+                    f"{r['ms'] - r['device_ms']:.4f})" for k, r in results.items()),
         flush=True)
     print("bounds: " + "; ".join(f"{k} {b['bound_ms']:.6f} ms by {b['bound_by']} "
-                                 f"({b['bound_basis']})" for k, b in bounds.items())
+                                 f"({b['bound_basis']}), launch floor "
+                                 f"{b['launch_floor_ms']:.6f} ms at grid {b['grid']}"
+                                 for k, b in bounds.items())
           + f"; aeclustering_exact latency floor "
           f"{bounds['aeclustering_exact']['latency_floor_ms']:.6f} ms ({n_lanes[3]} events x "
           f"{EXACT_CHAIN_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz)", flush=True)
@@ -530,6 +628,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "device_ms": r["device_ms"], "bound_ms": bounds[name]["bound_ms"],
          "bound_by": bounds[name]["bound_by"], "library_ms": None,
+         "launch_floor_ms": bounds[name]["launch_floor_ms"],
          **({"latency_floor_ms": bounds[name]["latency_floor_ms"]}
             if "latency_floor_ms" in bounds[name] else {})}
         for name, r in results.items()]}))
@@ -540,4 +639,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,116 +5,384 @@
 // 361-369): for labels (N,) int32 (-1 = none) and x, y (N,) f32, the (C, 5)
 // f32 rows [k, sum x, sum y, sum w x, sum w y], where k is the cluster's
 // member count, rank the member's stream-order position within its cluster
-// and w = alpha * (1 - alpha)^clip(k - 1 - rank, 0, 80).
+// and w = alpha * (1 - alpha)^clip(k - 1 - rank, 0, 80). Labels outside
+// [0, C) belong to no cluster.
 //
-// One CTA per cluster scans the N labels in order, twice: once to count k,
-// once to rank. Within a 256-label chunk a warp ballot and popcount give each
-// member its rank among the chunk's earlier lanes, and the per-warp counts
-// (double-buffered in shared memory, one barrier per chunk) give the chunk
-// offsets. Every thread keeps partial sums; a fixed shuffle-then-shared tree
-// combines them. No atomics, so the result is deterministic. Counts and
-// ranks are exact integers; sum x and sum y add integer-valued f32, exact in
-// any order below 2^24; only the weighted sums depend on the f32 order.
-// expf/log1pf in f32, no fast-math.
+// What bounds it on an H100: at the main path's size (N = 16384, C = 128)
+// the function moves 12 bytes per event and 20 per cluster, 0.2 MB, about
+// 0.06 us at 3.35 TB/s; its arithmetic is a few ops per event. Both are far
+// below the time of a launch, so the kernel is bound by its chain of
+// dependent steps: the loads' latency, the barriers, and how many times
+// the events are walked. (The previous design ran one CTA per cluster, each
+// walking all N labels twice in 256-label chunks with a barrier per chunk:
+// ~16 MB of L2 traffic and a serial chain of ~128 barriers per slice.)
 //
-// What bounds it: each CTA reads the 64 KB label array twice from L2 (128
-// CTAs: ~16 MB of L2 traffic per slice) with one barrier per chunk; the
-// arithmetic is negligible.
+// Design: ONE thread-block cluster of 8 CTAs (the portable size) of 512
+// threads, on 8 SMs. CTA r owns the r-th contiguous eighth of the events,
+// in stream order, and reads its labels, x and y once, with 16-byte loads
+// (a masked tail), into shared memory. Then, without atomics:
+//   1. each of 16 ranking warps (8 where shared memory is short) walks a
+//      contiguous piece of the CTA's range, 32 events a step;
+//      __match_any_sync groups a step's equal labels (four steps matched
+//      ahead), so a member's rank within its warp is the warp's running
+//      count of the label plus its peers on lower lanes: stream order;
+//   2. per cluster, an exclusive sum over the warps' counts gives each
+//      warp's offset and the CTA's count; a block-wide scan over clusters
+//      gives each cluster's bucket in a counting sort of the CTA's members;
+//   3. the cluster barrier that publishes the counts is split: between its
+//      arrive and its wait each member goes to its bucket at its rank, so a
+//      cluster's members sit contiguous and in stream order; only the warps
+//      that wrote counts arrive with release semantics (a fence at cluster
+//      scope), and the others sort while they fence;
+//   4. each CTA reads the other CTAs' counts through distributed shared
+//      memory (map_shared_rank): the lower ranks' give its offsets, all
+//      eight give k;
+//   5. a warp per cluster sums its bucket lane-strided, with weights from a
+//      table of alpha (1 - alpha)^e for e = 0..80 (the rank, and so the
+//      exponent, is the member's place in the bucket plus the offset), and
+//      a fixed 6-shuffle reduction, into a (sum x, sum y, sum w x, sum w y)
+//      partial; the CTA then sends each partial to the landing row of CTA
+//      j mod 8 with st.async, whose 16 bytes complete on that CTA's
+//      mbarrier (a CTA that gathers no cluster gets one dummy row);
+//   6. each CTA waits on its own mbarrier for the rows of every other CTA
+//      (so none of them reads its counts any more when it exits), adds the
+//      eight partials of each of its clusters in rank order and writes
+//      those (C, 5) rows.
+// One cluster barrier, split, and one mbarrier cross the cluster: the
+// cluster barrier's release is a fence at cluster scope, st.async needs
+// none, and a gather by one CTA through distributed shared memory would
+// take two more cluster barriers. A cluster with no members costs its
+// zero row. No float atomics: the summation order is fixed, so two calls
+// on the same input give the same bits. Counts and ranks are exact
+// integers; sum x and sum y add integer-valued f32, exact in any order
+// below 2^24; only the weighted sums depend on the f32 order. expf/log1pf
+// in f32 (the weight table), no fast-math.
+//
+// Shared memory per CTA, with Cp = C rounded up to 4, S = 4 ceil(N/32)
+// events per CTA and W ranking warps: (16 + 2W) Cp + 128 ceil(Cp/8) + 14 S
+// bytes (per cluster: count, bucket start, exponent base, k and W 16-bit
+// warp counts; a float4 landing row from each CTA per gathered cluster;
+// per event: label, x, y and a 16-bit sort index). The host entry point
+// takes W = 16 where it fits, else 8: at C = 128 and N = 16384, W = 16 and
+// 36,864 bytes; at C = 4096 and N = 16384, W = 8 and 225,280 of the
+// 232,448 a CTA may use. C = 4096 fits up to N = 19,872; the wrapper
+// (ops/cluster_kernels.py) raises for a size that does not fit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kCtas = 8;          // CTAs in the thread-block cluster
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSteps = 4;         // 32-event steps a ranking warp matches ahead
+constexpr int kLabelBits = 13;    // a ranked label packs
+constexpr int kWarpBits = 4;      // (rank << 17) | (warp << 13) | label
+constexpr unsigned kFull = 0xffffffffu;
+// dynamic shared memory a CTA may take (227 KB) less a margin for the
+// static arrays; ops/cluster_kernels.py:SMEM_LIMIT is the same number
+constexpr size_t kSmemLimit = 232448 - 1024;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+// bytes of dynamic shared memory for cp clusters, s events per CTA and rw
+// ranking warps: count, bucket, exponent base and k per cluster, the
+// ranking warps' 16-bit counts, the landing rows (a float4 from each CTA
+// for each cluster this CTA gathers), then label, x, y and a 16-bit sort
+// index per event
+size_t smem_bytes(int cp, int s, int rw) {
+  return (size_t)(16 + 2 * rw) * cp + 16 * (size_t)kCtas * ((cp + kCtas - 1) / kCtas) +
+         14 * (size_t)s;
 }
 
-__device__ __forceinline__ int warp_sum_int(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t remote(const void* p, int cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(cta));
+  return r;
+}
+
+// store a float4 at the same shared address in CTA `cta`, asynchronously;
+// its 16 bytes complete on that CTA's mbarrier at the address of `bar`
+__device__ __forceinline__ void send_row(float4* row, float4 v, const uint64_t* bar, int cta) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+               :: "r"(remote(row, cta)), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+                  "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(remote(bar, cta))
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_phase0(const uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+                 " selp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+}
+
+// The four sums of a warp in 6 shuffles rather than 20: halves of the warp
+// trade halves of the values, then each lane group of 8 reduces one value.
+// Lane 8 q ends with the warp's sum of value q. A fixed order: deterministic.
+__device__ __forceinline__ float warp_sum4(float v0, float v1, float v2, float v3,
+                                           int lane) {
+  const bool hi = lane & 16, h8 = lane & 8;
+  const float r0 = __shfl_xor_sync(kFull, hi ? v0 : v2, 16);
+  const float r1 = __shfl_xor_sync(kFull, hi ? v1 : v3, 16);
+  const float a0 = (hi ? v2 : v0) + r0, a1 = (hi ? v3 : v1) + r1;
+  float b = (h8 ? a1 : a0) + __shfl_xor_sync(kFull, h8 ? a0 : a1, 8);
+  b += __shfl_xor_sync(kFull, b, 4);
+  b += __shfl_xor_sync(kFull, b, 2);
+  b += __shfl_xor_sync(kFull, b, 1);
+  return b;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ int own(int label, int c) {
+  return label >= 0 && label < c ? label : -1;
+}
+
+__global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kThreads)
 cluster_stats_kernel(const int32_t* __restrict__ labels,
                      const float* __restrict__ x, const float* __restrict__ y,
-                     int n, float alpha, float* __restrict__ out) {
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __shared__ int warp_cnt[2][kWarps];
-  __shared__ float part[4][kWarps];
-  __shared__ int total;
+                     int n, int c, int cp, int s, int rw, float alpha,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(16) int smem[];
+  int* cnt = smem;                    // [cp] the CTA's members per cluster
+  int* bucket = cnt + cp;             // [cp] bucket start in the sort
+  int* ebase = bucket + cp;           // [cp] k - 1 - offset: exponent of the
+                                      //      CTA's first member, unclamped
+  int* ktot = ebase + cp;             // [cp] k
+  uint16_t* wcnt = reinterpret_cast<uint16_t*>(ktot + cp);      // [rw][cp]
+  const int own_max = (cp + kCtas - 1) / kCtas;
+  float4* land = reinterpret_cast<float4*>(wcnt + rw * cp);     // [kCtas][own_max]
+  int* lab = reinterpret_cast<int*>(land + kCtas * own_max);    // [s] label, packed
+  float* xs = reinterpret_cast<float*>(lab + s);                // [s]
+  float* ys = xs + s;                                           // [s]
+  uint16_t* order = reinterpret_cast<uint16_t*>(ys + s);        // [s]
+  __shared__ int warp_tot[kWarps];
+  __shared__ float wpow[81];          // alpha (1 - alpha)^e, e = 0..80
+  __shared__ __align__(8) uint64_t land_bar;   // the landing rows are in
 
-  // pass 1: member count k
-  int cnt = 0;
-  for (int i = tid; i < n; i += kThreads) cnt += labels[i] == c;
-  cnt = warp_sum_int(cnt);
-  if (lane == 0) warp_cnt[0][warp] = cnt;
-  __syncthreads();
-  if (tid == 0) {
-    int k = 0;
-    for (int w = 0; w < kWarps; ++w) k += warp_cnt[0][w];
-    total = k;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = min(n, rank * s);
+  const int len = min(n, lo + s) - lo;
+  // this CTA gathers clusters rank, rank + 8, ...; each CTA arrives once
+  // on its mbarrier, when its partials have landed and it reads no more
+  const int n_own = rank < c ? (c - rank + kCtas - 1) / kCtas : 0;
+  if (tid == kThreads - 1) {   // a thread with no weight to tabulate
+    // the landing rows arrive by st.async, each completing its bytes on
+    // this mbarrier: one row from each other CTA per gathered cluster (one
+    // dummy row where this CTA gathers none); this CTA's own rows are
+    // plain stores
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(&land_bar)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}"
+                 :: "r"(smem_u32(&land_bar)), "r"(16 * (kCtas - 1) * max(n_own, 1)) : "memory");
+  }
+
+  for (int i = tid; i < rw * cp / 2; i += kThreads) reinterpret_cast<int*>(wcnt)[i] = 0;
+  if (tid <= 80) wpow[tid] = alpha * expf(static_cast<float>(tid) * log1pf(-alpha));
+
+  // stage the CTA's range, each byte read once: 16-byte loads (lo is a
+  // multiple of 4 events), scalar loads for the tail or unaligned inputs
+  const bool vec = ((reinterpret_cast<uintptr_t>(labels) | reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int nvec = vec ? len / 4 : 0;
+  for (int v = tid; v < nvec; v += kThreads) {
+    int4 l = reinterpret_cast<const int4*>(labels + lo)[v];
+    const float4 a = reinterpret_cast<const float4*>(x + lo)[v];
+    const float4 b = reinterpret_cast<const float4*>(y + lo)[v];
+    l = make_int4(own(l.x, c), own(l.y, c), own(l.z, c), own(l.w, c));
+    reinterpret_cast<int4*>(lab)[v] = l;
+    reinterpret_cast<float4*>(xs)[v] = a;
+    reinterpret_cast<float4*>(ys)[v] = b;
+  }
+  for (int i = 4 * nvec + tid; i < len; i += kThreads) {
+    lab[i] = own(labels[lo + i], c);
+    xs[i] = x[lo + i];
+    ys[i] = y[lo + i];
   }
   __syncthreads();
-  const int k = total;
 
-  // pass 2: stream-order ranks, weights and sums
-  const float la = log1pf(-alpha);
-  float sx = 0.f, sy = 0.f, swx = 0.f, swy = 0.f;
-  int running = 0;
-  int buf = 1;  // warp_cnt[0] was last read before the barrier above
-  for (int base = 0; base < n; base += kThreads) {
-    const int i = base + tid;
-    const bool member = i < n && labels[i] == c;
-    const unsigned ballot = __ballot_sync(0xffffffffu, member);
-    if (lane == 0) warp_cnt[buf][warp] = __popc(ballot);
-    __syncthreads();
-    int before = running, chunk = 0;
+  // 1. rank within each ranking warp's contiguous sub-range, in stream
+  // order: kSteps steps of 32 events are matched at once, then the warp's
+  // running counts advance step by step
+  const int t = (len + rw - 1) / rw;
+  if (warp < rw) {
+    uint16_t* wc = wcnt + warp * cp;
+    const int end = min(len, (warp + 1) * t);
+    const unsigned lower = (1u << lane) - 1u;
+    for (int b = warp * t; b < end; b += 32 * kSteps) {
+      int l[kSteps];
+      unsigned peers[kSteps];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int v = warp_cnt[buf][w];
-      before += w < warp ? v : 0;
-      chunk += v;
+      for (int k = 0; k < kSteps; ++k) {
+        const int i = b + 32 * k + lane;
+        l[k] = i < end ? lab[i] : -1;
+        peers[k] = __match_any_sync(kFull, l[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k) {
+        const int prev = l[k] >= 0 ? wc[l[k]] : 0;
+        __syncwarp();
+        if (l[k] >= 0 && (peers[k] & lower) == 0) wc[l[k]] = (uint16_t)(prev + __popc(peers[k]));
+        __syncwarp();
+        if (l[k] >= 0)
+          lab[b + 32 * k + lane] = ((prev + __popc(peers[k] & lower)) << (kLabelBits + kWarpBits)) |
+                                   (warp << kLabelBits) | l[k];
+      }
     }
-    if (member) {
-      const int rank = before + __popc(ballot & ((1u << lane) - 1u));
-      const float expo = fminf(fmaxf(static_cast<float>(k - 1 - rank), 0.f), 80.f);
-      const float wgt = alpha * expf(expo * la);
-      const float xi = x[i], yi = y[i];
+  }
+  __syncthreads();
+
+  // 2. per cluster (a contiguous run of clusters per thread): the ranking
+  // warps' offsets, the CTA's count, then the buckets by a block-wide scan
+  const int q = (cp + kThreads - 1) / kThreads;
+  const int j0 = min(cp, tid * q), j1 = min(cp, j0 + q);
+  int run = 0;
+  for (int j = j0; j < j1; ++j) {
+    int sum = 0;
+    for (int w0 = 0; w0 < rw; w0 += 8) {   // rw is a multiple of 8
+      int v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = wcnt[(w0 + u) * cp + j];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        wcnt[(w0 + u) * cp + j] = (uint16_t)sum;
+        sum += v[u];
+      }
+    }
+    cnt[j] = sum;
+    run += sum;
+  }
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int start = incl - run;
+  for (int w = 0; w < warp; ++w) start += warp_tot[w];
+  for (int j = j0; j < j1; ++j) {
+    bucket[j] = start;
+    start += cnt[j];
+  }
+
+  // 3. the counting sort needs only this CTA's counts: it runs between
+  // the arrive and the wait of the cluster barrier that publishes them.
+  // Only the warps that wrote counts arrive with release semantics (a
+  // fence at cluster scope); the others arrive relaxed and sort meanwhile,
+  // unless every warp wrote counts.
+  __syncthreads();
+  const int writers = min(kThreads, (cp + q - 1) / q + 31) / 32 * 32;   // whole warps
+  const int sorters = writers < kThreads ? kThreads - writers : kThreads;
+  if (tid < writers)
+    cluster_arrive();
+  else
+    cluster_arrive_relaxed();
+  for (int i = (sorters < kThreads ? tid - writers : tid); i >= 0 && i < len; i += sorters) {
+    const int v = lab[i];
+    if (v >= 0) {
+      const int l = v & ((1 << kLabelBits) - 1);
+      const int w = (v >> kLabelBits) & ((1 << kWarpBits) - 1);
+      order[bucket[l] + wcnt[w * cp + l] + (v >> (kLabelBits + kWarpBits))] = (uint16_t)i;
+    }
+  }
+  cluster_wait();
+
+  // 4. every CTA's counts are in place: offsets and k through DSMEM
+  for (int j = tid; j < c; j += kThreads) {
+    int off = 0, k = 0;
+#pragma unroll
+    for (int r = 0; r < kCtas; ++r) {
+      const int v = cluster.map_shared_rank(cnt, r)[j];
+      off += r < rank ? v : 0;
+      k += v;
+    }
+    ebase[j] = k - 1 - off;
+    ktot[j] = k;
+  }
+  __syncthreads();
+
+  // 5. a warp per cluster sums its bucket in a fixed order and stores the
+  // partial into the landing row of the CTA that gathers the cluster
+  float4* part = reinterpret_cast<float4*>(wcnt);   // [cp]; wcnt is dead
+  for (int j = warp; j < c; j += kWarps) {
+    const int m = cnt[j];
+    if (m == 0) {
+      if (lane == 0) part[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    const int b = bucket[j], e = ebase[j];
+    float sx = 0.f, sy = 0.f, swx = 0.f, swy = 0.f;
+#pragma unroll 2
+    for (int p = lane; p < m; p += 32) {
+      const int i = order[b + p];
+      const float xi = xs[i], yi = ys[i];
+      const float wgt = wpow[min(max(e - p, 0), 80)];
       sx += xi;
       sy += yi;
       swx += wgt * xi;
       swy += wgt * yi;
     }
-    running += chunk;
-    buf ^= 1;
-  }
-
-  sx = warp_sum(sx);
-  sy = warp_sum(sy);
-  swx = warp_sum(swx);
-  swy = warp_sum(swy);
-  if (lane == 0) {
-    part[0][warp] = sx;
-    part[1][warp] = sy;
-    part[2][warp] = swx;
-    part[3][warp] = swy;
+    const float v = warp_sum4(sx, sy, swx, swy, lane);
+    if ((lane & 7) == 0) reinterpret_cast<float*>(part + j)[lane >> 3] = v;   // lane 8 q: value q
   }
   __syncthreads();
-  if (tid < 4) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += part[tid][w];
-    out[c * 5 + 1 + tid] = s;
+  for (int j = tid; j < c; j += kThreads) {
+    const int dst = j % kCtas, row = rank * own_max + j / kCtas;
+    if (dst == rank)
+      land[row] = part[j];
+    else
+      send_row(land + row, part[j], &land_bar, dst);
   }
-  if (tid == 0) out[c * 5] = static_cast<float>(k);
+  if (tid < kCtas && tid >= c && tid != rank)   // a CTA that gathers none
+    send_row(land + rank * own_max, make_float4(0.f, 0.f, 0.f, 0.f), &land_bar, tid);
+
+  // 6. the eight partials of each gathered cluster, in rank order; every
+  // other CTA's rows have landed, so none of them reads this CTA's counts
+  // any more when it exits
+  wait_phase0(&land_bar);
+  __syncthreads();
+  for (int q = tid; q < n_own; q += kThreads) {
+    const int j = rank + kCtas * q;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kCtas; ++r) {
+      const float4 v = land[r * own_max + q];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    float* o = out + 5 * (size_t)j;
+    o[0] = static_cast<float>(ktot[j]);
+    o[1] = acc.x;
+    o[2] = acc.y;
+    o[3] = acc.z;
+    o[4] = acc.w;
+  }
 }
 
 }  // namespace
@@ -122,8 +390,20 @@ cluster_stats_kernel(const int32_t* __restrict__ labels,
 extern "C" int cluster_stats(const void* labels, const void* x, const void* y,
                              int n, int c, float alpha, void* out,
                              void* stream) {
-  cluster_stats_kernel<<<c, kThreads, 0, (cudaStream_t)stream>>>(
+  const int cp = (c + 3) / 4 * 4, s = 4 * ((n + 4 * kCtas - 1) / (4 * kCtas));
+  int rw = kWarps;   // as many ranking warps as shared memory allows
+  while (rw > 8 && smem_bytes(cp, s, rw) > kSmemLimit) rw /= 2;
+  const size_t smem = smem_bytes(cp, s, rw);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static size_t granted = 48 * 1024;   // above it only by opting in
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cluster_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
+  cluster_stats_kernel<<<kCtas, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(labels), static_cast<const float*>(x),
-      static_cast<const float*>(y), n, alpha, static_cast<float*>(out));
+      static_cast<const float*>(y), n, c, cp, s, rw, alpha, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,14 @@ edited source is rebuilt, an unchanged one is loaded.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a nonzero code and counts the
-launch. Nothing here runs at import time.
+launch. The ctypes functions are resolved once, when the library is
+loaded, so a launch costs a dictionary lookup, the current stream's handle
+(`torch.accelerator.current_stream(device).native_handle`, the cheapest
+public way; chip_smoke.py's host-cost line times it against
+`torch.cuda.current_stream().cuda_stream`) and the ctypes call.
+`launch_floor` launches an empty kernel at a given grid, for timing
+(csrc/launch_floor.cu), and counts nothing. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("efast_stencil.cu", "assign_manhattan.cu", "cluster_stats.cu",
-           "aeclustering_exact.cu")
+           "aeclustering_exact.cu", "launch_floor.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "evflow_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,14 +52,17 @@ _SIGNATURES = {
     # scal, ev, ring_in, ivec, mu_in, m, c, radius, alpha, one_minus,
     # ring_out, ivec_out, mu_out, scal_out
     "aeclustering_exact": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    # blocks, threads, cluster
+    "launch_floor": [_I, _I, _I],
 }
 
 # Launches per kernel. A wrapper adds one where it launches its kernel and
 # nowhere else, so a run can show that the main path went through each.
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+LAUNCHES = {name: 0 for name in _SIGNATURES if name != "launch_floor"}
 
 _lock = threading.Lock()
 _lib = None
+_fns = {}   # name -> ctypes function, filled when the library is loaded
 
 
 def reset_launches() -> None:
@@ -111,42 +121,61 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     global _lib
-    with _lock:
-        if _lib is None:
-            so = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(so, name)
-                fn.argtypes = args + [_P]
-                fn.restype = ctypes.c_int
-            _lib = so
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                so = ctypes.CDLL(str(build()))
+                for name, args in _SIGNATURES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = args + [_P]
+                    fn.restype = ctypes.c_int
+                    _fns[name] = fn
+                _lib = so
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel `name` on PyTorch's current stream; raise if the launch
-    failed, else count it."""
-    rc = getattr(lib(), name)(*args, torch.cuda.current_stream().cuda_stream)
+def _call(name: str, device: int, args) -> None:
+    fn = _fns.get(name)
+    if fn is None:
+        lib()
+        fn = _fns[name]
+    rc = fn(*args, torch.accelerator.current_stream(device).native_handle)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def launch(name: str, device: int, *args) -> None:
+    """Launch kernel `name` on PyTorch's current stream of CUDA device
+    `device` (an index); raise if the launch failed, else count it."""
+    _call(name, device, args)
     LAUNCHES[name] += 1
 
 
-def check_device(*tensors: torch.Tensor) -> str:
-    """The common device type of `tensors`: 'cpu' (plain version) or 'cuda'
-    (kernel); anything else raises."""
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} vs {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type
+def launch_floor(blocks: int, threads: int, cluster: int = 1) -> None:
+    """Launch the empty kernel on the current device at a grid of `blocks`
+    CTAs of `threads` threads, in thread-block clusters of `cluster` CTAs;
+    not counted."""
+    _call("launch_floor", torch.cuda.current_device(), (blocks, threads, cluster))
 
 
-def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+def check_device(*tensors: torch.Tensor) -> int:
+    """The common device of `tensors`: -1 for the CPU (plain version), else
+    the CUDA device's index (kernel); anything else raises."""
+    index = tensors[0].get_device()
+    for t in tensors:
+        if t.get_device() != index or not (t.is_cuda or t.is_cpu):
+            raise ValueError("tensors on different or unsupported devices: "
+                             f"{[str(u.device) for u in tensors]}")
+    return index
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless `t` has this dtype and shape and is contiguous; one
+    test on the path that passes."""
+    if t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    raise ValueError(f"{name}: not contiguous")

@@ -41,7 +41,8 @@ def update_slice_kernel(state: AEState, x, y, t, p, valid,
     AEState field (integer and bool fields always; mu up to the order of
     the merge sum over three or more clusters, see the kernel source)."""
     m, c, n = cfg.max_members, cfg.max_clusters, x.shape[0]
-    if kernels.check_device(x, y, t, p, valid, state.mu) == "cpu":
+    device = kernels.check_device(x, y, t, p, valid, state.mu)
+    if device < 0:
         return update_slice(state, x, y, t, p, valid, cfg)
     if cfg.kappa != 0:
         raise ValueError("update_slice_kernel: kappa != 0 has no kernel; "
@@ -80,7 +81,7 @@ def update_slice_kernel(state: AEState, x, y, t, p, valid,
     scal_o = torch.empty_like(scal)
     # both EWMA constants as the plain version rounds them: (1 - alpha) in
     # double, then to f32 (not f32(1) - f32(alpha))
-    kernels.launch("aeclustering_exact", scal.data_ptr(), ev.data_ptr(),
+    kernels.launch("aeclustering_exact", device, scal.data_ptr(), ev.data_ptr(),
                    ring.data_ptr(), ivec.data_ptr(), mu.data_ptr(), m, c,
                    float(np.float32(cfg.radius)), float(np.float32(cfg.alpha)),
                    float(np.float32(1.0 - cfg.alpha)), ring_o.data_ptr(),

@@ -19,7 +19,10 @@ import torch
 
 from .. import kernels
 
-MAX_CLUSTERS = 4096   # assign_manhattan keeps the means in shared memory
+MAX_CLUSTERS = 4096   # both kernels keep per-cluster rows in shared memory
+# shared memory a CTA may take on an H100 (227 KB), less a margin for the
+# kernel's static arrays
+SMEM_LIMIT = 232448 - 1024
 
 
 def log1m(alpha: float) -> float:
@@ -52,14 +55,17 @@ def assign_manhattan(x: torch.Tensor, y: torch.Tensor, mu: torch.Tensor,
     kernels.check(y, "y", torch.int32, (n,))
     kernels.check(mu, "mu", torch.float32, (c, 2))
     kernels.check(alive, "alive", torch.bool, (c,))
-    if kernels.check_device(x, y, mu, alive) == "cpu":
+    device = kernels.check_device(x, y, mu, alive)
+    if device < 0:
         return assign_manhattan_plain(x, y, mu, alive, radius)
     if not 1 <= c <= MAX_CLUSTERS:
         raise ValueError(f"assign_manhattan: C={c} outside [1, {MAX_CLUSTERS}]")
+    # two allocations: one buffer with labels and distances as views of it
+    # costs more host time (chip_smoke.py's host-cost line)
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     dist = torch.empty(n, dtype=torch.float32, device=x.device)
     if n:
-        kernels.launch("assign_manhattan", x.data_ptr(), y.data_ptr(), n,
+        kernels.launch("assign_manhattan", device, x.data_ptr(), y.data_ptr(), n,
                        mu.data_ptr(), alive.data_ptr(), c, float(radius),
                        labels.data_ptr(), dist.data_ptr())
     return labels, dist
@@ -84,6 +90,16 @@ def cluster_stats_plain(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return onehot.T @ torch.where(member, feats, 0.0)
 
 
+def stats_smem(n: int, c: int) -> int:
+    """The least shared memory per CTA that csrc/cluster_stats.cu takes for
+    N events and C clusters (with 8 ranking warps; it takes up to 16 where
+    they fit), in bytes: 32 per cluster (C rounded up to 4), 16 per landing
+    row (8 for every 8 clusters, rounded up), 14 per event of a CTA's eighth
+    (rounded up to 4 events)."""
+    cp = -(-c // 4) * 4
+    return 32 * cp + 128 * -(-cp // 8) + 14 * 4 * -(-n // 32)
+
+
 def cluster_stats(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                   alpha: float, c: int) -> torch.Tensor:
     """Per-slice cluster statistics; labels (N,) int32, x, y (N,) f32.
@@ -93,12 +109,16 @@ def cluster_stats(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     kernels.check(labels, "labels", torch.int32, (n,))
     kernels.check(x, "x", torch.float32, (n,))
     kernels.check(y, "y", torch.float32, (n,))
-    if kernels.check_device(labels, x, y) == "cpu":
+    device = kernels.check_device(labels, x, y)
+    if device < 0:
         return cluster_stats_plain(labels, x, y, alpha, c)
     if not 0.0 < alpha < 1.0:
         raise ValueError(f"cluster_stats: alpha={alpha} outside (0, 1)")
+    if c > MAX_CLUSTERS or stats_smem(n, c) > SMEM_LIMIT:
+        raise ValueError(f"cluster_stats: N={n}, C={c} needs {stats_smem(n, c)} bytes of "
+                         f"shared memory per CTA (limit {SMEM_LIMIT}, C <= {MAX_CLUSTERS})")
     out = torch.empty((c, 5), dtype=torch.float32, device=labels.device)
     if c:
-        kernels.launch("cluster_stats", labels.data_ptr(), x.data_ptr(),
+        kernels.launch("cluster_stats", device, labels.data_ptr(), x.data_ptr(),
                        y.data_ptr(), n, c, float(alpha), out.data_ptr())
     return out

@@ -197,14 +197,15 @@ def corner_mask_stencil(sae: torch.Tensor, active: torch.Tensor,
     (corner_mask_dense_pallas_sparse2 / _sparse / corner_mask_dense_pallas:
     a tile map, a band map broadcast over tiles, all ones). CUDA tensors
     launch csrc/efast_stencil.cu; CPU tensors take the plain version."""
-    if _check_stencil_args(sae, active, band, wtile) == "cpu":
+    device = _check_stencil_args(sae, active, band, wtile)
+    if device < 0:
         return corner_mask_stencil_plain(sae, active, cfg, sensor, band, wtile)
     if not (1 <= cfg.streak3_min <= cfg.streak3_max < len(CIRCLE3)
             and 1 <= cfg.streak4_min <= cfg.streak4_max < len(CIRCLE4)):
         raise ValueError(f"streak lengths outside the rings: {cfg}")
     h, w = sae.shape
     out = torch.empty((h, w), dtype=torch.bool, device=sae.device)
-    kernels.launch("efast_stencil", sae.data_ptr(), h, w, active.data_ptr(),
+    kernels.launch("efast_stencil", device, sae.data_ptr(), h, w, active.data_ptr(),
                    active.shape[0], active.shape[1], band, wtile, cfg.border,
                    sensor.width, sensor.height, cfg.streak3_min, cfg.streak3_max,
                    cfg.streak4_min, cfg.streak4_max,

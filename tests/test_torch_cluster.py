@@ -194,3 +194,229 @@ def test_tracker_update_matches_jax():
                                    what=f"step {step}")
     assert int(st_t.active.sum()) > 10 and int(g_t.exists.sum()) > 0
     assert int(st_t.hist_len.max()) == cfg.history
+
+
+# ---- CPU models of the two kernels' designs (csrc/cluster_stats.cu and
+# csrc/assign_manhattan.cu), in numpy, step for step: the CUDA sources run
+# only on a card, so their partition, ordering and tie logic are held to the
+# plain versions and to the JAX package here.
+
+STATS_CTAS, STATS_WARPS = 8, 16
+LANES = np.arange(32)
+
+
+def _warp_sum4(v):
+    """The kernel's 6-shuffle reduction of four values over 32 lanes, in
+    its f32 order: the halves trade halves of the values, then each group
+    of 8 lanes reduces one value; lane 8 q holds the sum of value q."""
+    hi, h8 = (LANES & 16) > 0, (LANES & 8) > 0
+    p, q = LANES ^ 16, LANES ^ 8
+    a0 = np.where(hi, v[:, 2], v[:, 0]) + np.where(hi, v[p, 2], v[p, 0])
+    a1 = np.where(hi, v[:, 3], v[:, 1]) + np.where(hi, v[p, 3], v[p, 1])
+    b = np.where(h8, a1, a0) + np.where(h8, a1[q], a0[q])
+    for o in (4, 2, 1):
+        b = b + b[LANES ^ o]
+    return b[[0, 8, 16, 24]]
+
+
+def _ranking_warps(n, c):
+    """The host entry point's choice: 16 ranking warps, halved (down to 8)
+    while their counts do not fit in shared memory."""
+    rw = STATS_WARPS
+    while rw > 8 and ck.stats_smem(n, c) + 2 * (rw - 8) * (-(-c // 4) * 4) > ck.SMEM_LIMIT:
+        rw //= 2
+    return rw
+
+
+def _stats_partition_model(labels, x, y, alpha, c):
+    """csrc/cluster_stats.cu's partition: 8 contiguous CTA ranges of
+    S = 4 ceil(N/32) events, contiguous ranking-warp ranges in each walked
+    32 lanes a step (rank = the warp's running count plus equal labels on
+    lower lanes), the warps' offsets, the counting sort into per-cluster
+    buckets, the cross-CTA offsets and k, and the f32 sums in the kernel's
+    order (lane-strided, its 6-shuffle reduction, then the CTAs in rank
+    order)."""
+    n = len(labels)
+    s = 4 * -(-n // 32)
+    warps = _ranking_warps(n, c)
+    lab = np.where((labels >= 0) & (labels < c), labels, -1)
+    counts, ctas = np.zeros((STATS_CTAS, c), np.int64), []
+    for r in range(STATS_CTAS):
+        lo = min(n, r * s)
+        hi = min(n, lo + s)
+        seg = lab[lo:hi]
+        t = -(-len(seg) // warps)
+        wcnt = np.zeros((warps, c), np.int64)
+        rank_w = np.full(len(seg), -1)
+        for w in range(warps):
+            end = min(len(seg), (w + 1) * t)
+            for b in range(w * t, end, 32):
+                step = seg[b:min(b + 32, end)]
+                for lane, l in enumerate(step):
+                    if l >= 0:
+                        rank_w[b + lane] = wcnt[w, l] + np.sum(step[:lane] == l)
+                for l in np.unique(step[step >= 0]):
+                    wcnt[w, l] += np.sum(step == l)
+        woff = np.cumsum(wcnt, 0) - wcnt
+        counts[r] = wcnt.sum(0)
+        bucket = np.cumsum(counts[r]) - counts[r]
+        order = np.full(int(counts[r].sum()), -1)
+        for i in np.flatnonzero(seg >= 0):
+            order[bucket[seg[i]] + woff[i // t, seg[i]] + rank_w[i]] = i
+        # a permutation of the members, each bucket in stream order
+        assert sorted(order.tolist()) == np.flatnonzero(seg >= 0).tolist()
+        for j in range(c):
+            b = order[bucket[j]:bucket[j] + counts[r, j]]
+            assert (seg[b] == j).all() and (np.diff(b) > 0).all()
+        ctas.append((lo, order, bucket))
+    k = counts.sum(0)
+    off = np.cumsum(counts, 0) - counts
+    la = np.log1p(np.float32(-alpha), dtype=np.float32)
+    out = np.zeros((c, 5), np.float32)
+    out[:, 0] = k
+    for j in range(c):
+        acc = np.zeros(4, np.float32)
+        for r, (lo, order, bucket) in enumerate(ctas):
+            idx = lo + order[bucket[j]:bucket[j] + counts[r, j]]
+            p = np.arange(len(idx))
+            expo = np.clip(k[j] - 1 - off[r, j] - p, 0, 80).astype(np.float32)
+            wgt = np.float32(alpha) * np.exp(expo * la, dtype=np.float32)
+            v = np.zeros((32, 4), np.float32)
+            for lane in range(32):
+                for q in range(lane, len(idx), 32):
+                    i = idx[q]
+                    v[lane] += np.array([x[i], y[i], wgt[q] * x[i], wgt[q] * y[i]],
+                                        np.float32)
+            acc = acc + (_warp_sum4(v) if len(idx) else np.zeros(4, np.float32))
+        out[j, 1:] = acc
+    return out
+
+
+def _stats_case(n, kind, c):
+    rng = np.random.default_rng(n)
+    labels = rng.integers(-1, c, n).astype(np.int32)
+    if kind == "none":
+        labels[:] = -1
+    elif kind == "one":
+        labels[:] = c - 1
+    else:
+        labels[rng.random(n) < 0.3] = 3
+        labels[rng.random(n) < 0.05] = c + 5         # outside [0, C): no cluster
+    # small coordinates for the one-cluster case keep sum x under 2^24
+    hi = 64 if kind == "one" else 1280
+    x = rng.integers(0, hi, n).astype(np.float32)
+    y = rng.integers(0, min(hi, 720), n).astype(np.float32)
+    return labels, x, y
+
+
+@pytest.mark.parametrize("n,kind", [(1, "random"), (7, "random"), (1000, "random"),
+                                    (2048, "random"), (16384, "random"),
+                                    (1000, "none"), (2048, "one"), (7, "one")])
+def test_cluster_stats_partition_model(n, kind):
+    """The kernel's partition, modelled on the CPU, against the plain
+    version and the JAX package (its Pallas kernel in interpret mode where
+    N is a multiple of a tile, else its jnp oracle): counts and the integer
+    sums exact, the weighted sums within the f32-order tolerance."""
+    c, alpha = 32, 0.3
+    labels, x, y = _stats_case(n, kind, c)
+    got = _stats_partition_model(labels, x, y, alpha, c)
+    plain = ck.cluster_stats_plain(_t(labels), _t(x), _t(y), alpha, c).numpy()
+    jl, jx, jy = (jnp.asarray(a) for a in (np.where(labels < c, labels, -1), x, y))
+    tile = {1000: 500, 2048: 1024, 16384: 2048}.get(n)
+    if tile:
+        jax_out = pk.cluster_stats(jl, jx, jy, alpha, c, tile_n=tile,
+                                   sub_block=tile // 2, interpret=True)
+    else:
+        jax_out = pk.cluster_stats_reference(jl, jx, jy, alpha, c)
+    for want in (plain, np.asarray(jax_out)):
+        np.testing.assert_array_equal(got[:, :3], want[:, :3])
+        np.testing.assert_allclose(got[:, 3:], want[:, 3:], **CLUSTER_TOL)
+    if kind == "one":
+        assert got[c - 1, 0] == n and (got[:c - 1] == 0).all()
+    if kind == "none":
+        assert (got == 0).all()
+
+
+def _assign_model(x, y, mu, alive, radius):
+    """csrc/assign_manhattan.cu: the alive means compacted in index order
+    and padded to an even count with +inf, walked two at a time; a partial
+    minimum over even and one over odd positions, each replaced only on a
+    strict `<`, merged on (distance, position)."""
+    idx = np.flatnonzero(alive)
+    means = mu[idx].astype(np.float32)
+    if len(idx) % 2:
+        means = np.concatenate([means, np.full((1, 2), np.inf, np.float32)])
+    px, py = x.astype(np.float32), y.astype(np.float32)
+    inf = np.float32(np.inf)
+    best = [np.full(len(x), inf), np.full(len(x), inf)]
+    at = [np.full(len(x), -1), np.full(len(x), -1)]
+    for p in range(0, len(means), 2):
+        for par in (0, 1):
+            mx, my = means[p + par]
+            d = np.abs(px - mx) + np.abs(py - my)
+            better = d < best[par]
+            best[par] = np.where(better, d, best[par])
+            at[par] = np.where(better, p + par, at[par])
+    odd = (best[1] < best[0]) | ((best[1] == best[0]) & (at[1] >= 0) & (at[1] < at[0]))
+    pos = np.where(odd, at[1], at[0])
+    bd = np.where(odd, best[1], best[0]).astype(np.float32)
+    slot = np.where(pos >= 0, idx[np.clip(pos, 0, max(len(idx) - 1, 0))] if len(idx) else 0, 0)
+    return np.where(bd <= radius, slot, -1).astype(np.int32), bd
+
+
+def _assign_case(kind, n=2048, c=64):
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 1280, n).astype(np.int32)
+    y = rng.integers(0, 720, n).astype(np.int32)
+    mu = (rng.random((c, 2)) * 800).astype(np.float32)
+    alive = rng.random(c) > 0.5
+    if kind == "ties":
+        # equal means at alive slots whose compacted positions differ in
+        # parity, and at two of the same parity
+        alive[[10, 11, 20, 21, 22]] = True
+        alive[12:20] = False
+        mu[11] = mu[10]
+        mu[22] = mu[20]
+        x[:64], y[:64] = np.round(mu[10])
+        x[64:128], y[64:128] = np.round(mu[20])
+    elif kind == "dead-lower":
+        alive[:8] = False
+        alive[8] = True
+        mu[:8] = mu[8]                 # dead lower slots on the same mean
+        x[:64], y[:64] = np.round(mu[8])
+    elif kind == "none":
+        alive[:] = False
+    elif kind == "last":
+        alive[:] = False
+        alive[c - 1] = True
+        x[:64], y[:64] = np.round(mu[c - 1])
+    elif kind == "odd":
+        alive[:] = False
+        alive[rng.choice(c, 7, replace=False)] = True
+    return x, y, mu, alive
+
+
+@pytest.mark.parametrize("kind", ["ties", "dead-lower", "none", "last", "odd", "random"])
+def test_assign_compacted_model(kind):
+    """The kernel's alive-compacted, unrolled argmin, modelled on the CPU,
+    bit-equal to the plain version and to the JAX Pallas kernel
+    (interpret): ties, dead lower-index clusters, no alive cluster, one at
+    C - 1, an odd alive count."""
+    x, y, mu, alive = _assign_case(kind)
+    radius = 40.0
+    ml, md = _assign_model(x, y, mu, alive, radius)
+    pl_, pd = ck.assign_manhattan_plain(_t(x), _t(y), _t(mu), _t(alive), radius)
+    kl, kd = pk.assign_manhattan(jnp.asarray(x), jnp.asarray(y), jnp.asarray(mu),
+                                 jnp.asarray(alive.astype(np.int32)), radius,
+                                 tile_n=1024, interpret=True)
+    for wl, wd in ((pl_.numpy(), pd.numpy()), (np.asarray(kl), np.asarray(kd))):
+        np.testing.assert_array_equal(ml, wl)
+        np.testing.assert_array_equal(md, wd)
+    if kind == "ties":
+        assert (ml[:64] == 10).all() and (ml[64:128] == 20).all()
+    if kind == "dead-lower":
+        assert (ml[:64] == 8).all()
+    if kind == "none":
+        assert (ml == -1).all() and np.isinf(md).all()
+    if kind == "last":
+        assert (ml[:64] == len(alive) - 1).all()

@@ -123,6 +123,116 @@ def test_cluster_kernels_match_plain(cuda, n):
     torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-3)
 
 
+def _stats_inputs(n, c, kind, device):
+    """Labels, x, y for cluster_stats. Coordinates stay below 200, so every
+    sum x and sum y (at most 65536 x 199) is exact in f32 (< 2^24)."""
+    rng = np.random.default_rng(n + c)
+    labels = rng.integers(-1, c, n).astype(np.int32)
+    if kind == "none":
+        labels[:] = -1
+    elif kind == "one":
+        labels[:] = c - 1          # exponents reach the clamp at 80
+    x = rng.integers(0, 200, n).astype(np.float32)
+    y = rng.integers(0, 200, n).astype(np.float32)
+    return [torch.as_tensor(a, device=device) for a in (labels, x, y)]
+
+
+def _stats_close(got, want):
+    assert torch.equal(got[:, :3], want[:, :3])     # counts and integer sums exact
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("c", [1, 128, 4096])
+@pytest.mark.parametrize("n", [0, 1, 7, 1000, 16384, 65536])
+def test_cluster_stats_sizes(cuda, n, c):
+    """The 8-CTA cluster at every size: a CTA range empty, ragged or not a
+    multiple of 4 events, and C = 4096 at N = 16384 (225,280 bytes of
+    shared memory per CTA). C = 4096 at N = 65536 does not fit: the wrapper
+    raises."""
+    labels, x, y = _stats_inputs(n, c, "random", cuda)
+    if ck.stats_smem(n, c) > ck.SMEM_LIMIT:
+        with pytest.raises(ValueError):
+            ck.cluster_stats(labels, x, y, 0.3, c)
+        return
+    before = kernels.LAUNCHES["cluster_stats"]
+    got = ck.cluster_stats(labels, x, y, 0.3, c)
+    _stats_close(got, ck.cluster_stats_plain(labels, x, y, 0.3, c))
+    assert kernels.LAUNCHES["cluster_stats"] == before + 1
+
+
+@pytest.mark.parametrize("kind,n", [("none", 16384), ("one", 16384), ("one", 65536)])
+def test_cluster_stats_edge_labels(cuda, kind, n):
+    """Labels all -1, and one cluster holding every event."""
+    c = 128
+    labels, x, y = _stats_inputs(n, c, kind, cuda)
+    got = ck.cluster_stats(labels, x, y, 0.1, c)
+    _stats_close(got, ck.cluster_stats_plain(labels, x, y, 0.1, c))
+    assert int(got[:, 0].sum()) == (0 if kind == "none" else n)
+
+
+def test_cluster_stats_deterministic(cuda):
+    """No float atomics: two calls on the same input give the same bits."""
+    labels, x, y = _stats_inputs(16384, 128, "random", cuda)
+    labels[: 8000] = 5
+    a = ck.cluster_stats(labels, x, y, 0.5, 128)
+    b = ck.cluster_stats(labels, x, y, 0.5, 128)
+    assert torch.equal(a, b)
+
+
+def test_cluster_stats_limits(cuda):
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    f = z.to(torch.float32)
+    with pytest.raises(ValueError):
+        ck.cluster_stats(z, f, f, 0.5, ck.MAX_CLUSTERS + 1)
+    big = torch.zeros(1 << 18, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ck.cluster_stats(big, big.to(torch.float32), big.to(torch.float32), 0.5, 128)
+
+
+def _assign_case(kind, n, c, device):
+    rng = np.random.default_rng(n + c)
+    x = rng.integers(0, 1280, n).astype(np.int32)
+    y = rng.integers(0, 720, n).astype(np.int32)
+    mu = (rng.random((c, 2)) * 800).astype(np.float32)
+    alive = rng.random(c) > 0.6
+    if kind == "none":
+        alive[:] = False
+    elif kind == "last":
+        alive[:] = False
+        alive[c - 1] = True
+        mu[c - 1] = np.round(mu[c - 1])
+        x[: n // 2], y[: n // 2] = mu[c - 1]
+    elif kind == "equal":
+        lo, hi = 2, c - 2           # equal means at a lower and a higher index
+        alive[[lo, hi]] = True
+        mu[lo] = np.round(mu[lo])
+        mu[hi] = mu[lo]
+        x[: n // 2], y[: n // 2] = mu[lo]
+    return [torch.as_tensor(a, device=device) for a in (x, y, mu, alive)]
+
+
+@pytest.mark.parametrize("c", [128, 4096])
+@pytest.mark.parametrize("n", [1, 1000, 1001, 16384])
+@pytest.mark.parametrize("kind", ["random", "none", "last", "equal"])
+def test_assign_manhattan_cases(cuda, kind, n, c):
+    """Bit-equal to the plain version: no alive cluster, one alive at
+    C - 1, equal means at a lower and a higher index, C = 4096 (48 KB of
+    shared memory), and N not a multiple of the CTA's 64 events (odd N
+    also takes the scalar path for the distances' row)."""
+    x, y, mu, alive = _assign_case(kind, n, c, cuda)
+    before = kernels.LAUNCHES["assign_manhattan"]
+    lk, dk = ck.assign_manhattan(x, y, mu, alive, 40.0)
+    lp, dp = ck.assign_manhattan_plain(x, y, mu, alive, 40.0)
+    assert torch.equal(lk, lp) and torch.equal(dk, dp)
+    assert kernels.LAUNCHES["assign_manhattan"] == before + 1
+    if kind == "none":
+        assert bool((lk == -1).all()) and bool(torch.isinf(dk).all())
+    if kind == "last":
+        assert bool((lk[: n // 2] == c - 1).all())
+    if kind == "equal":
+        assert bool((lk[: n // 2] == 2).all())
+
+
 def test_full_scan_on_card_matches_cpu(cuda):
     n = 2048
     cfg = dataclasses.replace(
