@@ -31,7 +31,8 @@ Phases, one line each:
      plain versions, of the exact path with the kernel and with its plain
      version (2 slices), and each kernel's time beside its plain version's:
      `ms`, the wrapper's time per eager call by CUDA events around
-     back-to-back calls, host included, and `device_ms`, its device time
+     back-to-back calls, host included (the median of 5 rounds of 20
+     calls), and `device_ms`, its device time
      per call from a CUDA-graph replay of the wrapper. The plain versions
      are timed as `ms` is, the exact engine's over 2 slices. Beside each
      kernel, its launch floor: the graph-replay device time of an empty
@@ -90,19 +91,24 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of fn() over `reps` calls after `warm` warm-up
-    calls, by CUDA events."""
+def cuda_ms(fn, reps: int = 20, warm: int = 3, rounds: int = 5) -> float:
+    """Time of fn() per call over `reps` back-to-back calls after `warm`
+    warm-up calls, by CUDA events, host included where the calls are
+    host-bound: the median of `rounds` such rounds, so one round slowed by
+    the host's other work does not decide it."""
     for _ in range(warm):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
 
 
 def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
@@ -111,7 +117,7 @@ def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
     warm-up calls on a side stream, as capture requires) and the graph is
     replayed `reps` times between CUDA events. One graph of many calls
     leaves out the graph's own launch, which a graph of one call pays per
-    call (about 5 us on the H100)."""
+    call."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -296,8 +302,8 @@ def launch_grids(h, w, band, n) -> dict:
         "efast_stencil": (-(-w // efast.WTILE) * -(-h // band) * -(-band // 2), 256, 1),
         # assign_manhattan.cu: one warp per CTA, 2 events per thread
         "assign_manhattan": (-(-n // 64), 32, 1),
-        # cluster_stats.cu: one thread-block cluster of 8 CTAs x 256
-        "cluster_stats": (8, 256, 8),
+        # cluster_stats.cu: one thread-block cluster of 8 CTAs x 512
+        "cluster_stats": (8, 512, 8),
         # aeclustering_exact.cu: one warp
         "aeclustering_exact": (1, 32, 1),
     }
