@@ -9,8 +9,7 @@ Phases, one line each:
      the eFAST stencil, the two fastcluster kernels (cluster_stats also
      bit-equal to itself over two calls), and the exact
      AEClustering engine (2 DEFAULT slices from the same state, every
-     AEState field equal); then the host cost of a wrapper's pieces (the
-     stream handle, the output allocations, the checks, a launch);
+     AEState field equal);
   3. the port's main path, pipeline.full_scan at the DEFAULT configuration
      (1280x720 SAE, 16384 events per slice, 128 clusters, 8192 eFAST
      candidates, NMS capacity 512, 256 tracks, q=1) over a 32-slice
@@ -52,10 +51,6 @@ single PyTorch call computes any of the four functions.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It exits nonzero on any failure, and at once when no CUDA device is found.
-`python3 chip_smoke.py --kernels-only` stops after phase 2 and prints the
-kernels' times as one JSON line: copied into another checkout of the port
-(an earlier commit, unpacked beside it) and run there, it times that
-tree's kernels by the same method, in the same call.
 """
 
 import contextlib
@@ -144,47 +139,6 @@ def timed(fn, plain) -> dict:
     host included (CUDA events around back-to-back calls), and the
     wrapper's device time per call (CUDA graph replay)."""
     return dict(ms=cuda_ms(fn), plain_ms=cuda_ms(plain), device_ms=device_ms(fn))
-
-
-def host_us(fn, reps: int = 2000) -> float:
-    """Host time of fn() per call in microseconds over back-to-back calls,
-    after warm-up calls."""
-    for _ in range(50):
-        fn()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t) / reps * 1e6
-
-
-def wrapper_host_costs(x, y, mu, alive, kernels, ck) -> dict:
-    """Host microseconds per call of the pieces of a kernel wrapper: the
-    stream handle read two ways (after checking that the one the launches
-    read is PyTorch's current stream), the outputs as two allocations or as
-    views of one, the assignment wrapper without its launch (N = 0), and a
-    launch of the empty kernel."""
-    idx = x.get_device()
-    for st in (torch.cuda.current_stream(), torch.cuda.Stream()):
-        with torch.cuda.stream(st):
-            assert torch.accelerator.current_stream(idx).native_handle == st.cuda_stream
-    n, dev = x.shape[0], x.device
-
-    def one_buffer():
-        buf = torch.empty((2, n), dtype=torch.int32, device=dev)
-        return buf[0], buf[1].view(torch.float32)
-
-    x0, y0 = x[:0], y[:0]
-    return {
-        "cuda.current_stream().cuda_stream": host_us(
-            lambda: torch.cuda.current_stream().cuda_stream),
-        "accelerator.current_stream(i).native_handle": host_us(
-            lambda: torch.accelerator.current_stream(idx).native_handle),
-        "two empty": host_us(lambda: (torch.empty(n, dtype=torch.int32, device=dev),
-                                      torch.empty(n, dtype=torch.float32, device=dev))),
-        "one empty, two views": host_us(one_buffer),
-        "assign_manhattan N=0": host_us(lambda: ck.assign_manhattan(x0, y0, mu, alive, 20.0)),
-        "launch_floor": host_us(lambda: kernels.launch_floor(1, 32, 1)),
-    }
 
 
 # cluster floats: fp order of the weighted sums; tracker floats: order of
@@ -317,11 +271,7 @@ def to_host(tree):
     return tree.cpu()
 
 
-def main(argv) -> int:
-    kernels_only = argv == ["--kernels-only"]
-    if argv and not kernels_only:
-        print("usage: chip_smoke.py [--kernels-only]", file=sys.stderr)
-        return 2
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -452,22 +402,12 @@ def main(argv) -> int:
     bounds = kernel_bounds(new_sae, act, band, cfg, x, cl.alive, ae0, lanes[3], c)
     for name, (blocks, threads, size) in launch_grids(h, w, band, n).items():
         bounds[name]["grid"] = (blocks, threads, size)
-        if hasattr(kernels, "launch_floor"):   # absent from trees before it
-            bounds[name]["launch_floor_ms"] = device_ms(
-                lambda: kernels.launch_floor(blocks, threads, size))
+        bounds[name]["launch_floor_ms"] = device_ms(
+            lambda: kernels.launch_floor(blocks, threads, size))
     print(f"exact engine vs plain, slices 3-4 from the same state: every AEState "
           f"field bit-equal, mu included; unique lanes per slice {n_lanes}; live clusters "
           f"{int(ae_k.alive.sum())}, overflow {int(ae_k.overflow)}, members "
           f"{int((ae_k.mcid >= 0).sum())}", flush=True)
-    if kernels_only:
-        print(json.dumps({"kernel_times": {
-            name: dict(r, launch_floor_ms=bounds[name].get("launch_floor_ms"))
-            for name, r in results.items()}}))
-        return 0
-    host = wrapper_host_costs(x, y, cl.mu, cl.alive, kernels, ck)
-    torch.cuda.synchronize()
-    print("wrapper host costs, us per call: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in host.items()), flush=True)
 
     def teacher_forced(c, slices):
         """The card's full_scan step against a plain CPU step from the same
@@ -645,4 +585,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -12,8 +12,8 @@ Each C entry point launches on the stream it is given and returns
 launch. The ctypes functions are resolved once, when the library is
 loaded, so a launch costs a dictionary lookup, the current stream's handle
 (`torch.accelerator.current_stream(device).native_handle`, the cheapest
-public way; chip_smoke.py's host-cost line times it against
-`torch.cuda.current_stream().cuda_stream`) and the ctypes call.
+public way: it measured faster than `torch.cuda.current_stream()
+.cuda_stream`, PERF.md section 6) and the ctypes call.
 `launch_floor` launches an empty kernel at a given grid, for timing
 (csrc/launch_floor.cu), and counts nothing. Nothing here runs at import
 time.

@@ -20,9 +20,6 @@ import torch
 from .. import kernels
 
 MAX_CLUSTERS = 4096   # both kernels keep per-cluster rows in shared memory
-# shared memory a CTA may take on an H100 (227 KB), less a margin for the
-# kernel's static arrays
-SMEM_LIMIT = 232448 - 1024
 
 
 def log1m(alpha: float) -> float:
@@ -61,7 +58,7 @@ def assign_manhattan(x: torch.Tensor, y: torch.Tensor, mu: torch.Tensor,
     if not 1 <= c <= MAX_CLUSTERS:
         raise ValueError(f"assign_manhattan: C={c} outside [1, {MAX_CLUSTERS}]")
     # two allocations: one buffer with labels and distances as views of it
-    # costs more host time (chip_smoke.py's host-cost line)
+    # measured more host time per call (PERF.md, section 6)
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
     dist = torch.empty(n, dtype=torch.float32, device=x.device)
     if n:
@@ -90,16 +87,6 @@ def cluster_stats_plain(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return onehot.T @ torch.where(member, feats, 0.0)
 
 
-def stats_smem(n: int, c: int) -> int:
-    """The least shared memory per CTA that csrc/cluster_stats.cu takes for
-    N events and C clusters (with 8 ranking warps; it takes up to 16 where
-    they fit), in bytes: 32 per cluster (C rounded up to 4), 16 per landing
-    row (8 for every 8 clusters, rounded up), 14 per event of a CTA's eighth
-    (rounded up to 4 events)."""
-    cp = -(-c // 4) * 4
-    return 32 * cp + 128 * -(-cp // 8) + 14 * 4 * -(-n // 32)
-
-
 def cluster_stats(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                   alpha: float, c: int) -> torch.Tensor:
     """Per-slice cluster statistics; labels (N,) int32, x, y (N,) f32.
@@ -114,9 +101,8 @@ def cluster_stats(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         return cluster_stats_plain(labels, x, y, alpha, c)
     if not 0.0 < alpha < 1.0:
         raise ValueError(f"cluster_stats: alpha={alpha} outside (0, 1)")
-    if c > MAX_CLUSTERS or stats_smem(n, c) > SMEM_LIMIT:
-        raise ValueError(f"cluster_stats: N={n}, C={c} needs {stats_smem(n, c)} bytes of "
-                         f"shared memory per CTA (limit {SMEM_LIMIT}, C <= {MAX_CLUSTERS})")
+    if c > MAX_CLUSTERS:
+        raise ValueError(f"cluster_stats: C={c} above {MAX_CLUSTERS}")
     out = torch.empty((c, 5), dtype=torch.float32, device=labels.device)
     if c:
         kernels.launch("cluster_stats", device, labels.data_ptr(), x.data_ptr(),

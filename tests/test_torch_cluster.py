@@ -219,56 +219,60 @@ def _warp_sum4(v):
     return b[[0, 8, 16, 24]]
 
 
-def _ranking_warps(n, c):
-    """The host entry point's choice: 16 ranking warps, halved (down to 8)
-    while their counts do not fit in shared memory."""
-    rw = STATS_WARPS
-    while rw > 8 and ck.stats_smem(n, c) + 2 * (rw - 8) * (-(-c // 4) * 4) > ck.SMEM_LIMIT:
-        rw //= 2
-    return rw
+def _rank_chunk(seg, warps, c):
+    """One chunk's ranks and counting sort, as the kernel's steps 1-3:
+    contiguous ranking-warp ranges walked 32 lanes a step (rank = the
+    warp's running count plus equal labels on lower lanes), the warps'
+    offsets, the per-cluster buckets. Returns the chunk's counts per
+    cluster, the bucket starts and the sorted chunk indices."""
+    t = -(-len(seg) // warps)
+    wcnt = np.zeros((warps, c), np.int64)
+    rank_w = np.full(len(seg), -1)
+    for w in range(warps):
+        end = min(len(seg), (w + 1) * t)
+        for b in range(w * t, end, 32):
+            step = seg[b:min(b + 32, end)]
+            for lane, l in enumerate(step):
+                if l >= 0:
+                    rank_w[b + lane] = wcnt[w, l] + np.sum(step[:lane] == l)
+            for l in np.unique(step[step >= 0]):
+                wcnt[w, l] += np.sum(step == l)
+    woff = np.cumsum(wcnt, 0) - wcnt
+    counts = wcnt.sum(0)
+    bucket = np.cumsum(counts) - counts
+    order = np.full(int(counts.sum()), -1)
+    for i in np.flatnonzero(seg >= 0):
+        order[bucket[seg[i]] + woff[i // t, seg[i]] + rank_w[i]] = i
+    # a permutation of the members, each bucket in stream order
+    assert sorted(order.tolist()) == np.flatnonzero(seg >= 0).tolist()
+    for j in range(c):
+        b = order[bucket[j]:bucket[j] + counts[j]]
+        assert (seg[b] == j).all() and (np.diff(b) > 0).all()
+    return counts, bucket, order
 
 
-def _stats_partition_model(labels, x, y, alpha, c):
+def _stats_partition_model(labels, x, y, alpha, c, warps=STATS_WARPS, chunk=None):
     """csrc/cluster_stats.cu's partition: 8 contiguous CTA ranges of
-    S = 4 ceil(N/32) events, contiguous ranking-warp ranges in each walked
-    32 lanes a step (rank = the warp's running count plus equal labels on
-    lower lanes), the warps' offsets, the counting sort into per-cluster
-    buckets, the cross-CTA offsets and k, and the f32 sums in the kernel's
-    order (lane-strided, its 6-shuffle reduction, then the CTAs in rank
-    order)."""
+    S = 4 ceil(N/32) events, each walked in chunks of `chunk` events (the
+    whole range by default, as at the main path's size), each chunk ranked
+    and sorted by `warps` ranking warps; the cross-CTA offsets and k; and
+    the f32 sums in the kernel's order (lane-strided, its 6-shuffle
+    reduction, added to the CTA's partial chunk by chunk, then the CTAs in
+    rank order)."""
     n = len(labels)
     s = 4 * -(-n // 32)
-    warps = _ranking_warps(n, c)
+    chunk = chunk or max(s, 4)
     lab = np.where((labels >= 0) & (labels < c), labels, -1)
     counts, ctas = np.zeros((STATS_CTAS, c), np.int64), []
     for r in range(STATS_CTAS):
         lo = min(n, r * s)
         hi = min(n, lo + s)
-        seg = lab[lo:hi]
-        t = -(-len(seg) // warps)
-        wcnt = np.zeros((warps, c), np.int64)
-        rank_w = np.full(len(seg), -1)
-        for w in range(warps):
-            end = min(len(seg), (w + 1) * t)
-            for b in range(w * t, end, 32):
-                step = seg[b:min(b + 32, end)]
-                for lane, l in enumerate(step):
-                    if l >= 0:
-                        rank_w[b + lane] = wcnt[w, l] + np.sum(step[:lane] == l)
-                for l in np.unique(step[step >= 0]):
-                    wcnt[w, l] += np.sum(step == l)
-        woff = np.cumsum(wcnt, 0) - wcnt
-        counts[r] = wcnt.sum(0)
-        bucket = np.cumsum(counts[r]) - counts[r]
-        order = np.full(int(counts[r].sum()), -1)
-        for i in np.flatnonzero(seg >= 0):
-            order[bucket[seg[i]] + woff[i // t, seg[i]] + rank_w[i]] = i
-        # a permutation of the members, each bucket in stream order
-        assert sorted(order.tolist()) == np.flatnonzero(seg >= 0).tolist()
-        for j in range(c):
-            b = order[bucket[j]:bucket[j] + counts[r, j]]
-            assert (seg[b] == j).all() and (np.diff(b) > 0).all()
-        ctas.append((lo, order, bucket))
+        chunks = []
+        for clo in range(lo, hi, chunk):
+            ccount, bucket, order = _rank_chunk(lab[clo:min(hi, clo + chunk)], warps, c)
+            counts[r] += ccount
+            chunks.append((clo, ccount, bucket, order))
+        ctas.append(chunks)
     k = counts.sum(0)
     off = np.cumsum(counts, 0) - counts
     la = np.log1p(np.float32(-alpha), dtype=np.float32)
@@ -276,18 +280,25 @@ def _stats_partition_model(labels, x, y, alpha, c):
     out[:, 0] = k
     for j in range(c):
         acc = np.zeros(4, np.float32)
-        for r, (lo, order, bucket) in enumerate(ctas):
-            idx = lo + order[bucket[j]:bucket[j] + counts[r, j]]
-            p = np.arange(len(idx))
-            expo = np.clip(k[j] - 1 - off[r, j] - p, 0, 80).astype(np.float32)
-            wgt = np.float32(alpha) * np.exp(expo * la, dtype=np.float32)
-            v = np.zeros((32, 4), np.float32)
-            for lane in range(32):
-                for q in range(lane, len(idx), 32):
-                    i = idx[q]
-                    v[lane] += np.array([x[i], y[i], wgt[q] * x[i], wgt[q] * y[i]],
-                                        np.float32)
-            acc = acc + (_warp_sum4(v) if len(idx) else np.zeros(4, np.float32))
+        for r, chunks in enumerate(ctas):
+            part = np.zeros(4, np.float32)
+            e = k[j] - 1 - off[r, j]      # exponent of the CTA's first member
+            for clo, ccount, bucket, order in chunks:
+                m = ccount[j]
+                if m == 0:
+                    continue
+                idx = clo + order[bucket[j]:bucket[j] + m]
+                expo = np.clip(e - np.arange(m), 0, 80).astype(np.float32)
+                wgt = np.float32(alpha) * np.exp(expo * la, dtype=np.float32)
+                v = np.zeros((32, 4), np.float32)
+                for lane in range(32):
+                    for q in range(lane, m, 32):
+                        i = idx[q]
+                        v[lane] += np.array([x[i], y[i], wgt[q] * x[i], wgt[q] * y[i]],
+                                            np.float32)
+                part = part + _warp_sum4(v)
+                e -= m
+            acc = acc + part
         out[j, 1:] = acc
     return out
 
@@ -335,6 +346,30 @@ def test_cluster_stats_partition_model(n, kind):
         assert got[c - 1, 0] == n and (got[:c - 1] == 0).all()
     if kind == "none":
         assert (got == 0).all()
+
+
+@pytest.mark.parametrize("n,kind,warps,chunk", [
+    (2048, "random", 4, 128), (1000, "one", 2, 36), (1000, "random", 1, 8),
+    (7, "random", 16, 4), (2048, "none", 8, 64)])
+def test_cluster_stats_chunked_model(n, kind, warps, chunk):
+    """The kernel's partition with each CTA's range walked in several
+    chunks (what shared memory forces at large N or C) and fewer ranking
+    warps: the ranks and the exponents carry across chunks, so the result
+    still matches the plain version and the JAX oracle."""
+    c, alpha = 32, 0.3
+    labels, x, y = _stats_case(n, kind, c)
+    got = _stats_partition_model(labels, x, y, alpha, c, warps, chunk)
+    plain = ck.cluster_stats_plain(_t(labels), _t(x), _t(y), alpha, c).numpy()
+    jax_out = pk.cluster_stats_reference(
+        jnp.asarray(np.where(labels < c, labels, -1)), jnp.asarray(x), jnp.asarray(y), alpha, c)
+    for want in (plain, np.asarray(jax_out)):
+        np.testing.assert_array_equal(got[:, :3], want[:, :3])
+        np.testing.assert_allclose(got[:, 3:], want[:, 3:], **CLUSTER_TOL)
+    # the chunked sums reorder only the weighted f32 additions
+    whole = _stats_partition_model(labels, x, y, alpha, c, warps)
+    np.testing.assert_array_equal(got[:, :3], whole[:, :3])
+    if kind == "one":
+        assert got[c - 1, 0] == n
 
 
 def _assign_model(x, y, mu, alive, radius):

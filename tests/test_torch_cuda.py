@@ -124,16 +124,17 @@ def test_cluster_kernels_match_plain(cuda, n):
 
 
 def _stats_inputs(n, c, kind, device):
-    """Labels, x, y for cluster_stats. Coordinates stay below 200, so every
-    sum x and sum y (at most 65536 x 199) is exact in f32 (< 2^24)."""
+    """Labels, x, y for cluster_stats. Coordinates stay below 200, and
+    below 2^24 / N, so every sum x and sum y is exact in f32 (< 2^24)."""
     rng = np.random.default_rng(n + c)
     labels = rng.integers(-1, c, n).astype(np.int32)
     if kind == "none":
         labels[:] = -1
     elif kind == "one":
         labels[:] = c - 1          # exponents reach the clamp at 80
-    x = rng.integers(0, 200, n).astype(np.float32)
-    y = rng.integers(0, 200, n).astype(np.float32)
+    hi = min(200, (1 << 24) // max(n, 1))
+    x = rng.integers(0, hi, n).astype(np.float32)
+    y = rng.integers(0, hi, n).astype(np.float32)
     return [torch.as_tensor(a, device=device) for a in (labels, x, y)]
 
 
@@ -146,23 +147,21 @@ def _stats_close(got, want):
 @pytest.mark.parametrize("n", [0, 1, 7, 1000, 16384, 65536])
 def test_cluster_stats_sizes(cuda, n, c):
     """The 8-CTA cluster at every size: a CTA range empty, ragged or not a
-    multiple of 4 events, and C = 4096 at N = 16384 (225,280 bytes of
-    shared memory per CTA). C = 4096 at N = 65536 does not fit: the wrapper
-    raises."""
+    multiple of 4 events, and C = 4096, whose per-cluster arrays leave room
+    for chunks of 1168 events: N = 16384 and 65536 walk each CTA's range
+    in 2 and 8 chunks."""
     labels, x, y = _stats_inputs(n, c, "random", cuda)
-    if ck.stats_smem(n, c) > ck.SMEM_LIMIT:
-        with pytest.raises(ValueError):
-            ck.cluster_stats(labels, x, y, 0.3, c)
-        return
     before = kernels.LAUNCHES["cluster_stats"]
     got = ck.cluster_stats(labels, x, y, 0.3, c)
     _stats_close(got, ck.cluster_stats_plain(labels, x, y, 0.3, c))
     assert kernels.LAUNCHES["cluster_stats"] == before + 1
 
 
-@pytest.mark.parametrize("kind,n", [("none", 16384), ("one", 16384), ("one", 65536)])
+@pytest.mark.parametrize("kind,n", [("none", 16384), ("one", 16384), ("one", 65536),
+                                    ("one", 1 << 18)])
 def test_cluster_stats_edge_labels(cuda, kind, n):
-    """Labels all -1, and one cluster holding every event."""
+    """Labels all -1, and one cluster holding every event (at N = 2^18 in
+    three chunks per CTA, its ranks carried across them)."""
     c = 128
     labels, x, y = _stats_inputs(n, c, kind, cuda)
     got = ck.cluster_stats(labels, x, y, 0.1, c)
@@ -170,23 +169,40 @@ def test_cluster_stats_edge_labels(cuda, kind, n):
     assert int(got[:, 0].sum()) == (0 if kind == "none" else n)
 
 
-def test_cluster_stats_deterministic(cuda):
-    """No float atomics: two calls on the same input give the same bits."""
-    labels, x, y = _stats_inputs(16384, 128, "random", cuda)
-    labels[: 8000] = 5
-    a = ck.cluster_stats(labels, x, y, 0.5, 128)
-    b = ck.cluster_stats(labels, x, y, 0.5, 128)
+@pytest.mark.parametrize("n,c", [(16384, 128), (65536, 4096)])
+def test_cluster_stats_deterministic(cuda, n, c):
+    """No float atomics: two calls on the same input give the same bits,
+    in one chunk per CTA and in several."""
+    labels, x, y = _stats_inputs(n, c, "random", cuda)
+    labels[: n // 2] = 5
+    a = ck.cluster_stats(labels, x, y, 0.5, c)
+    b = ck.cluster_stats(labels, x, y, 0.5, c)
     assert torch.equal(a, b)
 
 
 def test_cluster_stats_limits(cuda):
+    """C above MAX_CLUSTERS raises; N does not limit the kernel: 2^18
+    events at C = 128 (three chunks per CTA) match the plain version."""
     z = torch.zeros(8, dtype=torch.int32, device=cuda)
     f = z.to(torch.float32)
     with pytest.raises(ValueError):
         ck.cluster_stats(z, f, f, 0.5, ck.MAX_CLUSTERS + 1)
-    big = torch.zeros(1 << 18, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        ck.cluster_stats(big, big.to(torch.float32), big.to(torch.float32), 0.5, 128)
+    labels, x, y = _stats_inputs(1 << 18, 128, "random", cuda)
+    _stats_close(ck.cluster_stats(labels, x, y, 0.5, 128),
+                 ck.cluster_stats_plain(labels, x, y, 0.5, 128))
+
+
+def test_launch_reads_current_stream(cuda):
+    """A launch reads the stream handle through torch.accelerator: it is
+    PyTorch's current stream, the default one or a side stream."""
+    for st in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(st):
+            assert torch.accelerator.current_stream(torch.cuda.current_device()).native_handle \
+                == st.cuda_stream
+            labels, x, y = _stats_inputs(1000, 128, "random", cuda)
+            got = ck.cluster_stats(labels, x, y, 0.5, 128)
+        st.synchronize()
+        _stats_close(got, ck.cluster_stats_plain(labels, x, y, 0.5, 128))
 
 
 def _assign_case(kind, n, c, device):
