@@ -35,8 +35,18 @@ Phases, one line each:
      per call from a CUDA-graph replay of the wrapper. The plain versions
      are timed as `ms` is, the exact engine's over 2 slices. Beside each
      kernel, its launch floor: the graph-replay device time of an empty
-     kernel (csrc/launch_floor.cu) at the kernel's grid.
-Then one JSON line of per-kernel results and, last, the status line
+     kernel (csrc/launch_floor.cu) at the kernel's grid. The stencil is
+     also timed, and bounded, on the all-ones activity map (every tile);
+  8. full_scan at q=8 with the snapshot-stack corner path (micro_stack)
+     over the same slices: launches, every state and output leaf bit-equal
+     to phase 5's serial q=8 run, slices 1-4 against a plain CPU step, its
+     corner agreement equal to the JAX package's q=8 value; ms/slice of
+     serial and stack in the order serial, stack, stack, serial;
+  9. k-means (`kmeans_phase`), 10. DBSCAN dense and grid (`dbscan_phase`),
+     11. app C's point-cloud chain (`pointcloud_phase`): each against its
+     CPU run, with ms per call.
+Every phase's line carries the card's name and power limit beside its
+times. Then one JSON line of per-kernel results and, last, the status line
 {"ok": true, "device": {...}}. A kernel's `launches` is its count over the
 path it belongs to (full_scan at q=1, or the exact path). Its `bound_ms` is
 the least time the card could take for the function's work on the phase-2
@@ -47,7 +57,9 @@ type, both counted from this run's shapes and data (`kernel_bounds`). Its
 grid can go, however small its bound. The exact engine is serial, so it
 also gets `latency_floor_ms`: its events times the shortest dependent
 chain per event. Its `library_ms` is null: no
-single PyTorch call computes any of the four functions.
+single PyTorch call computes any of the four functions. The stencil's
+entry also has `all_tiles_ms`, `all_tiles_device_ms`, `all_tiles_bound_ms`
+and `all_tiles_launch_floor_ms`, the same on the all-ones map.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It exits nonzero on any failure, and at once when no CUDA device is found.
@@ -189,13 +201,9 @@ def alive_per_event(state, lanes, cfg) -> int:
     return total
 
 
-def kernel_bounds(new_sae, act, band, cfg, x, alive, ae_state, lanes, n_clusters) -> dict:
-    """bound_ms of each kernel on the inputs phase 2 hands it (see the
-    module docstring): the stencil counts the rings of this run's active
-    tiles that reach each stage of its test; the assignment tests each
-    event against the clusters alive at the slice's start; the exact
-    engine tests each valid lane against the clusters alive at that
-    event."""
+def stencil_bound(new_sae, act, band, cfg) -> dict:
+    """bound_ms of the eFAST stencil on the surface and activity map: the
+    rings of the active tiles that reach each stage of its test."""
     from evflow_tpu_torch.ops import efast
     h, w = new_sae.shape
     e = cfg.efast
@@ -219,6 +227,17 @@ def kernel_bounds(new_sae, act, band, cfg, x, alive, ae_state, lanes, n_clusters
     counts = [len(ys), int(scan3.sum()), int(pass3.sum()), int(scan4.sum())]
     stencil_ops = counts[0] * rej3 + counts[1] * sc3 + counts[2] * rej4 + counts[3] * sc4
     stencil_bytes = n_tiles * (band + 8) * (efast.WTILE + 8) * 4 + h * w + act.numel()
+    return bound(stencil_bytes, 0, stencil_ops,
+                 f"{n_tiles} active tiles' halos read, the mask written; rings tested, "
+                 f"scanned, passing circle3, scanned on circle4: {counts}")
+
+
+def kernel_bounds(new_sae, act, band, cfg, x, alive, ae_state, lanes, n_clusters) -> dict:
+    """bound_ms of each kernel on the inputs phase 2 hands it (see the
+    module docstring): the stencil's by `stencil_bound`; the assignment
+    tests each event against the clusters alive at the slice's start; the
+    exact engine tests each valid lane against the clusters alive at that
+    event."""
     n, c = x.shape[0], n_clusters
     n_alive = int(alive.sum())
     m = cfg.cluster.max_members
@@ -232,10 +251,7 @@ def kernel_bounds(new_sae, act, band, cfg, x, alive, ae_state, lanes, n_clusters
         f"abs, add, radius compare) and 2 int32 (alive, count > 0)")
     exact["latency_floor_ms"] = n_ev * EXACT_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
     return {
-        "efast_stencil": bound(
-            stencil_bytes, 0, stencil_ops,
-            f"{n_tiles} active tiles' halos read, the mask written; rings tested, "
-            f"scanned, passing circle3, scanned on circle4: {counts}"),
+        "efast_stencil": stencil_bound(new_sae, act, band, cfg),
         "assign_manhattan": bound(
             16 * n + 9 * c, 6 * n * n_alive, 0,
             f"x, y read, label and distance written for {n} events; "
@@ -269,6 +285,217 @@ def to_host(tree):
         parts = [to_host(t) for t in tree]
         return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
     return tree.cpu()
+
+
+def few_ms(fn) -> float:
+    """cuda_ms for calls that take milliseconds and sync the host each
+    round of their loops: the median of 3 rounds of 3 calls."""
+    return cuda_ms(fn, reps=3, warm=1, rounds=3)
+
+
+def same_partition(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two labelings (-1 = none) put the same points together: the label
+    pairs are a bijection that maps -1 to -1 only."""
+    pairs = set(zip(a.cpu().tolist(), b.cpu().tolist()))
+    left, right = {p[0] for p in pairs}, {p[1] for p in pairs}
+    return (len(pairs) == len(left) == len(right)
+            and all((p == -1) == (q == -1) for p, q in pairs))
+
+
+@contextlib.contextmanager
+def no_dense_fallback():
+    """Within it, dbscan_grid raises instead of falling back to dense
+    dbscan: the run must take the grid path."""
+    from evflow_tpu_torch.models import dbscan
+    saved = dbscan.dbscan
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("dbscan_grid fell back to dense dbscan")
+
+    dbscan.dbscan = refuse
+    try:
+        yield
+    finally:
+        dbscan.dbscan = saved
+
+
+def kmeans_phase(dev, card, x, y, valid) -> str:
+    """Phase 9: k-means on app D's ramp (2048 points, its 8 initial
+    centroids) and on one DEFAULT slice's events (K = 8, initial centroids
+    the events at lanes 0, 2048, ..): against the CPU run of the same call
+    (counts and iters equal, centroids within 1e-4, labels equal except
+    where the two nearest centroids are within 1e-3), two calls on the card
+    bit-equal, ms per call."""
+    from evflow_tpu_torch import interop
+    from evflow_tpu_torch.io import synthetic
+    from evflow_tpu_torch.models import kmeans
+    ev = torch.stack([x, y], 1).to(torch.float32)
+    cases = {"app D ramp": (torch.as_tensor(synthetic.kmeans_ramp_data(2048), device=dev),
+                            torch.as_tensor(synthetic.kmeans_initial_centroids(), device=dev),
+                            None),
+             "slice 3 events": (ev, ev[::2048].clone(), valid)}
+    parts = []
+    for label, (pts, init, v) in cases.items():
+        def call():
+            return kmeans.kmeans(pts, init, v)
+
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        interop.assert_trees_close(got, again, **EXACT_TOL, what=f"k-means {label}, two calls")
+        ref = kmeans.kmeans(pts.cpu(), init.cpu(), None if v is None else v.cpu())
+        assert torch.equal(got.counts.cpu(), ref.counts), (label, got.counts, ref.counts)
+        assert int(got.iters) == int(ref.iters), (label, int(got.iters), int(ref.iters))
+        err = float((got.centroids.cpu() - ref.centroids).abs().max())
+        assert err <= 1e-4, (label, err)
+        differ = got.labels.cpu() != ref.labels
+        if bool(differ.any()):
+            d = torch.cdist(pts.cpu().double(), ref.centroids.double()).sort(1).values
+            assert bool((d[differ, 1] - d[differ, 0] < 1e-3).all()), label
+        parts.append(f"{label}: {pts.shape[0]} points, K={init.shape[0]}, iters "
+                     f"{int(got.iters)}, counts {got.counts.tolist()}, centroids within "
+                     f"{err:.3g} of the CPU run, {int(differ.sum())} labels differ (near-ties), "
+                     f"two calls bit-equal, {few_ms(call):.3f} ms per call")
+    return f"k-means on {card}: " + "; ".join(parts)
+
+
+def dbscan_phase(dev, card, x, y, valid, cfg) -> str:
+    """Phase 10: dense dbscan on one DEFAULT slice's events at
+    DBSCANConfig's defaults, and dbscan_grid (max_neighbors 2048) on the
+    slice's unique pixels from hash_dedup.dedup_mask: the grid table exists
+    and no row overflows it (no fall-back), both runs bit-equal to their
+    CPU runs, and the grid's partition equal to dense dbscan's on the same
+    pixels."""
+    from evflow_tpu_torch import interop
+    from evflow_tpu_torch.config import DBSCANConfig
+    from evflow_tpu_torch.models import dbscan, optics
+    from evflow_tpu_torch.ops import hash_dedup
+    dcfg = DBSCANConfig()
+    ev = torch.stack([x, y], 1).to(torch.float32)
+
+    def dense():
+        return dbscan.dbscan(ev, valid, cfg=dcfg)
+
+    got = dense()
+    interop.assert_trees_close(got, dbscan.dbscan(ev.cpu(), valid.cpu(), cfg=dcfg),
+                               **EXACT_TOL, what="dense dbscan vs the CPU")
+    ded = hash_dedup.dedup_mask(x, y, valid, cfg.dedup, cfg.sensor)
+    upts = ev[ded.unique_mask].cpu().numpy()
+    table = optics.compute_neighbors_grid(upts, dcfg.eps, dcfg.core_min_pts,
+                                          max_neighbors=2048, device=dev)
+    assert table is not None, "no grid table"
+    widest = int(table.count.max())
+    assert widest <= table.idx.shape[1], (widest, tuple(table.idx.shape))
+
+    def grid():
+        with no_dense_fallback():
+            return dbscan.dbscan_grid(upts, dcfg, max_neighbors=2048, device=dev)
+
+    g = grid()
+    interop.assert_trees_close(g, dbscan.dbscan_grid(upts, dcfg, max_neighbors=2048,
+                                                     device="cpu"),
+                               **EXACT_TOL, what="dbscan_grid vs the CPU")
+    du = dbscan.dbscan(torch.as_tensor(upts, device=dev), cfg=dcfg)
+    assert same_partition(g.labels, du.labels), "grid and dense partitions differ"
+    return (f"DBSCAN on {card}: dense on {ev.shape[0]} events: {int(got.num_clusters)} clusters, "
+            f"{int(got.iterations)} iterations, bit-equal to the CPU, {few_ms(dense):.3f} ms per "
+            f"call; grid on {len(upts)} unique pixels: table {tuple(table.idx.shape)}, widest "
+            f"row {widest}, no fall-back, {int(g.num_clusters)} clusters, "
+            f"{int(g.iterations)} iterations, bit-equal to the CPU, partition equal to dense "
+            f"dbscan's, {few_ms(grid):.3f} ms per call")
+
+
+# app C's scene: 2^17 points, a plane z = 0.3 (3/4 of them, 1 x 1 m, noise
+# sigma 0.005) and four blobs (sigma 0.03) above it. Its ~35,000 occupied
+# 1 cm voxels share the default 2^16 hash buckets with many collisions,
+# whose merged centroids can bridge the blobs (phase 11 prints what the
+# chain finds there); 2^20 buckets keep the four apart.
+PC_POINTS = 1 << 17
+PC_BLOBS = ((0.25, 0.25, 0.5), (0.75, 0.25, 0.6), (0.25, 0.75, 0.45), (0.75, 0.75, 0.55))
+VOXEL_BUCKETS = 1 << 20
+
+
+def pointcloud_scene(seed: int = SEED) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    n_plane = 3 * PC_POINTS // 4
+    n_blob = (PC_POINTS - n_plane) // len(PC_BLOBS)
+    plane = np.stack([rng.uniform(0, 1, n_plane), rng.uniform(0, 1, n_plane),
+                      0.3 + rng.normal(0, 0.005, n_plane)], 1)
+    return np.concatenate([plane] + [rng.normal(c, 0.03, (n_blob, 3)) for c in PC_BLOBS]
+                          ).astype(np.float32)
+
+
+def pointcloud_phase(dev, card) -> str:
+    """Phase 11, app C's chain as its CLI runs it: voxel_downsample (leaf
+    0.01), the occupied voxels compacted, ransac_plane (100 hypotheses,
+    threshold 0.02), remove_plane, dbscan_grid (eps 0.05, core 10, min size
+    100, max_neighbors 2048). Checks: voxel counts equal to the CPU run's,
+    centroids within 1e-6, two voxel calls bit-equal; RANSAC's plane and
+    inliers equal to the CPU run's, |n_z| > 0.95; the grid path taken; the
+    four blobs found. ms per stage."""
+    from evflow_tpu_torch import interop
+    from evflow_tpu_torch.config import DBSCANConfig
+    from evflow_tpu_torch.models import dbscan, optics, pointcloud
+    pts_np = pointcloud_scene()
+    pts = torch.as_tensor(pts_np, device=dev)
+
+    def voxel(p=pts):
+        return pointcloud.voxel_downsample(p, 0.01, num_buckets=VOXEL_BUCKETS)
+
+    vox, again = voxel(), voxel()
+    torch.cuda.synchronize()
+    interop.assert_trees_close(vox, again, **EXACT_TOL, what="voxel, two calls")
+    ref = voxel(torch.as_tensor(pts_np))
+    assert int(vox.count) == int(ref.count) and torch.equal(vox.valid.cpu(), ref.valid)
+    verr = float((vox.points.cpu() - ref.points).abs().max())
+    assert verr <= 1e-6, verr
+    vpts = vox.points[vox.valid]
+
+    def ransac(p=vpts):
+        return pointcloud.ransac_plane(p, threshold=0.02, iters=100)
+
+    plane = ransac()
+    pref = ransac(vpts.cpu())
+    assert torch.equal(plane.inliers.cpu(), pref.inliers)
+    assert int(plane.num_inliers) == int(pref.num_inliers)
+    perr = float((plane.coeffs.cpu() - pref.coeffs).abs().max())
+    assert perr <= 1e-6, perr
+    assert abs(float(plane.coeffs[2])) > 0.95, plane.coeffs.tolist()
+    ones = torch.ones(vpts.shape[0], dtype=torch.bool, device=dev)
+
+    def remove():
+        return pointcloud.remove_plane(vpts, ones, plane)
+
+    rest = vpts[remove()].cpu().numpy()
+    dcfg = DBSCANConfig(eps=0.05, core_min_pts=10, min_cluster_size=100)
+    table = optics.compute_neighbors_grid(rest, dcfg.eps, dcfg.core_min_pts,
+                                          max_neighbors=2048, device=dev)
+    assert table is not None and int(table.count.max()) <= table.idx.shape[1]
+
+    def grid():
+        with no_dense_fallback():
+            return dbscan.dbscan_grid(rest, dcfg, max_neighbors=2048, device=dev)
+
+    res = grid()
+    sizes = torch.bincount(res.labels[res.labels >= 0].long()).tolist()
+    assert int(res.num_clusters) == len(PC_BLOBS), sizes
+    # the same chain at the default 2^16 buckets, for the record
+    v16 = pointcloud.voxel_downsample(pts, 0.01)
+    p16 = v16.points[v16.valid]
+    pl16 = pointcloud.ransac_plane(p16, threshold=0.02, iters=100)
+    keep16 = pointcloud.remove_plane(
+        p16, torch.ones(p16.shape[0], dtype=torch.bool, device=dev), pl16)
+    c16 = dbscan.dbscan_grid(p16[keep16].cpu().numpy(), dcfg, max_neighbors=2048, device=dev)
+    return (f"point cloud on {card}: {PC_POINTS} points -> {int(vox.count)} voxels "
+            f"({VOXEL_BUCKETS} buckets; counts equal to the CPU's, centroids within "
+            f"{verr:.3g}, two calls bit-equal) -> plane {plane.coeffs.tolist()} with "
+            f"{int(plane.num_inliers)} inliers (equal to the CPU's, coeffs within {perr:.3g}) "
+            f"-> {len(rest)} points -> dbscan_grid table {tuple(table.idx.shape)}, widest row "
+            f"{int(table.count.max())}, no fall-back, {int(res.num_clusters)} clusters of "
+            f"{sizes}, {int(res.iterations)} iterations; ms per stage: voxel "
+            f"{few_ms(voxel):.3f}, ransac {few_ms(ransac):.3f}, remove_plane "
+            f"{few_ms(remove):.4f}, dbscan_grid {few_ms(grid):.3f}; at the default "
+            f"{1 << 16} buckets the chain finds {int(v16.count)} voxels and "
+            f"{int(c16.num_clusters)} clusters")
 
 
 def main() -> int:
@@ -334,6 +561,12 @@ def main() -> int:
     results["efast_stencil"] = dict(max_abs_err=float(err), **timed(
         lambda: efast.corner_mask_stencil(new_sae, act, cfg.efast, cfg.sensor, band),
         lambda: efast.corner_mask_stencil_plain(new_sae, act, cfg.efast, cfg.sensor, band)))
+
+    def all_tiles():
+        return efast.corner_mask_stencil(new_sae, ones, cfg.efast, cfg.sensor, band)
+
+    results["efast_stencil"].update(all_tiles_ms=cuda_ms(all_tiles),
+                                    all_tiles_device_ms=device_ms(all_tiles))
 
     radius = cfg.cluster.radius
     lab_k, dist_k = ck.assign_manhattan(x, y, cl.mu, cl.alive, radius)
@@ -404,6 +637,8 @@ def main() -> int:
         bounds[name]["grid"] = (blocks, threads, size)
         bounds[name]["launch_floor_ms"] = device_ms(
             lambda: kernels.launch_floor(blocks, threads, size))
+    # the all-ones map launches the same grid, so its floor is the same
+    all_tiles_bound = stencil_bound(new_sae, ones, band, cfg)
     print(f"exact engine vs plain, slices 3-4 from the same state: every AEState "
           f"field bit-equal, mu included; unique lanes per slice {n_lanes}; live clusters "
           f"{int(ae_k.alive.sum())}, overflow {int(ae_k.overflow)}, members "
@@ -447,10 +682,10 @@ def main() -> int:
         for name, leaf in interop.named_leaves(((cl, co), (clo, coo))):
             assert leaf.dtype.kind != "f" or np.isfinite(leaf).all(), f"non-finite {name}"
         assert bool((coo.num_filtered <= coo.num_corners).all())
-        return launches, corners, coo.num_filtered.cpu(), n_reported
+        return launches, corners, coo.num_filtered.cpu(), n_reported, ((cl, co), (clo, coo))
 
     # ---- 3. the main path, counted
-    launches, corners, filtered, n_reported = counted_full_scan(
+    launches, corners, filtered, n_reported, _ = counted_full_scan(
         cfg, ("efast_stencil", "assign_manhattan", "cluster_stats"))
     teacher_forced(cfg, range(1, 5))
     print(f"main path: launches {launches} over {N_SLICES} slices; corners/slice "
@@ -485,7 +720,7 @@ def main() -> int:
           f"slices 1-2 match a plain CPU step", flush=True)
 
     # ---- 5. full_scan at q=8, counted
-    launches_q8, corners_q8, filtered_q8, reported_q8 = counted_full_scan(
+    launches_q8, corners_q8, filtered_q8, reported_q8, scan_q8 = counted_full_scan(
         cfg_q8, ("assign_manhattan", "cluster_stats"))
     teacher_forced(cfg_q8, range(1, 5))
     print(f"q=8 path: launches {launches_q8} over {N_SLICES} slices; corners/slice "
@@ -557,7 +792,37 @@ def main() -> int:
                                  for k, b in bounds.items())
           + f"; aeclustering_exact latency floor "
           f"{bounds['aeclustering_exact']['latency_floor_ms']:.6f} ms ({n_lanes[3]} events x "
-          f"{EXACT_CHAIN_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz)", flush=True)
+          f"{EXACT_CHAIN_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz); efast_stencil on "
+          f"the all-ones map: {results['efast_stencil']['all_tiles_ms']:.4f} ms eager, "
+          f"{results['efast_stencil']['all_tiles_device_ms']:.5f} device, bound "
+          f"{all_tiles_bound['bound_ms']:.6f} ms by {all_tiles_bound['bound_by']} "
+          f"({all_tiles_bound['bound_basis']})", flush=True)
+
+    # ---- 8. the snapshot-stack q=8 path, counted
+    cfg_stack = dataclasses.replace(cfg_q8, efast=dataclasses.replace(cfg_q8.efast,
+                                                                      micro_stack=True))
+    launches_st, corners_st, _, reported_st, scan_st = counted_full_scan(
+        cfg_stack, ("assign_manhattan", "cluster_stats"))
+    interop.assert_trees_close(scan_st, scan_q8, **EXACT_TOL, what="stack vs serial q=8")
+    teacher_forced(cfg_stack, range(1, 5))
+    agreement_st = fidelity.corner_agreement(8, device=dev, stack=True)
+    assert agreement_st == fidelity.JAX_AGREEMENT[8], (agreement_st, fidelity.JAX_AGREEMENT[8])
+    stack_ms = {"serial": [], "stack": []}
+    for label, c in (("serial", cfg_q8), ("stack", cfg_stack), ("stack", cfg_stack),
+                     ("serial", cfg_q8)):
+        run_ms(c)   # warm-up
+        stack_ms[label].append(run_ms(c))
+    print(f"micro_stack q=8 on {card}: launches {launches_st} over {N_SLICES} slices; "
+          f"corners/slice {corners_st.tolist()}; clusters reported {reported_st.tolist()}; "
+          f"every state and output leaf bit-equal to the serial q=8 run; slices 1-4 match a "
+          f"plain CPU step; corner agreement {agreement_st!r} (JAX package "
+          f"{fidelity.JAX_AGREEMENT[8]!r}); ms/slice in the order serial, stack, stack, "
+          f"serial: serial {stack_ms['serial']}, stack {stack_ms['stack']}", flush=True)
+
+    # ---- 9-11. k-means, DBSCAN, the point-cloud chain
+    print(kmeans_phase(dev, card, xs[3], ys[3], vs[3]), flush=True)
+    print(dbscan_phase(dev, card, xs[3], ys[3], vs[3], cfg), flush=True)
+    print(pointcloud_phase(dev, card), flush=True)
 
     sources = {"efast_stencil": ("evflow_tpu_torch/csrc/efast_stencil.cu",
                                  "evflow_tpu/ops/efast.py:397"),
@@ -576,7 +841,11 @@ def main() -> int:
          "bound_by": bounds[name]["bound_by"], "library_ms": None,
          "launch_floor_ms": bounds[name]["launch_floor_ms"],
          **({"latency_floor_ms": bounds[name]["latency_floor_ms"]}
-            if "latency_floor_ms" in bounds[name] else {})}
+            if "latency_floor_ms" in bounds[name] else {}),
+         **({"all_tiles_ms": r["all_tiles_ms"], "all_tiles_device_ms": r["all_tiles_device_ms"],
+             "all_tiles_bound_ms": all_tiles_bound["bound_ms"],
+             "all_tiles_launch_floor_ms": bounds[name]["launch_floor_ms"]}
+            if name == "efast_stencil" else {})}
         for name, r in results.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

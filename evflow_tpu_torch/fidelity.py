@@ -35,15 +35,16 @@ def wedge(cx: int, cy: int, t0: int, n: int = 2048, seed: int = 0):
     return x, y, t
 
 
-def corner_agreement(q: int, device="cuda") -> float:
+def corner_agreement(q: int, device="cuda", stack: bool = False) -> float:
     """Within-one-NMS-box agreement of the q-micro-slice detector's corner
-    pixels with the per-event-exact ones, over slices 1-7 of the scene."""
+    pixels with the per-event-exact ones, over slices 1-7 of the scene;
+    with `stack`, of the snapshot-stack detector (`micro_stack=True`)."""
     cfg = EngineConfig(sensor=SensorConfig(width=128, height=128),
                        slicing=SliceConfig(n_events=2048),
                        nms=NMSConfig(max_corners=64))
     cfgq = dataclasses.replace(
         cfg, efast=dataclasses.replace(cfg.efast, micro_slices=q,
-                                       max_candidates=2048))
+                                       max_candidates=2048, micro_stack=stack))
     exact, got = [], []
     sae_e = sae_ops.init_sae(cfg.sensor, device=device)
     sae_q = sae_ops.init_sae(cfg.sensor, device=device)
@@ -55,18 +56,23 @@ def corner_agreement(q: int, device="cuda") -> float:
         sae_e, m = pipeline.event_exact_corner_mask(sae_e, xv, yv, tv, ones, s > 0, cfg)
         m = m.cpu().numpy()
         exact.append({(int(a), int(b)) for a, b in zip(x[m], y[m])})
+        if stack:
+            sae_q, scx, scy, mk, _ = pipeline.stack_detect(sae_q, xv, yv, tv, ones, cfgq)
+            found = [(scx, scy, mk)]
+        else:
+            found = []
+            nsub = len(x) // q
+            for k in range(q):
+                sl = slice(k * nsub, (k + 1) * nsub)
+                sae_q = sae_ops.update_sae(sae_q, xv[sl], yv[sl], tv[sl], ones[sl])
+                scx, scy, scv, _ = pipeline._representative_candidates(
+                    xv[sl], yv[sl], ones[sl], 2048 // q, cfgq)
+                found.append((scx, scy, efast.detect_corners(sae_q, scx, scy, scv,
+                                                             cfgq.efast, cfgq.sensor)))
         pix = set()
-        nsub = len(x) // q
-        for k in range(q):
-            sl = slice(k * nsub, (k + 1) * nsub)
-            sae_q = sae_ops.update_sae(sae_q, xv[sl], yv[sl], tv[sl], ones[sl])
-            scx, scy, scv, _ = pipeline._representative_candidates(
-                xv[sl], yv[sl], ones[sl], 2048 // q, cfgq)
-            mk = efast.detect_corners(sae_q, scx, scy, scv, cfgq.efast,
-                                      cfgq.sensor).cpu().numpy()
-            if s > 0:
-                sx, sy = scx.cpu().numpy(), scy.cpu().numpy()
-                pix |= {(int(a), int(b)) for a, b in zip(sx[mk], sy[mk])}
+        for scx, scy, mk in found if s > 0 else ():
+            mk, sx, sy = mk.cpu().numpy(), scx.cpu().numpy(), scy.cpu().numpy()
+            pix |= {(int(a), int(b)) for a, b in zip(sx[mk], sy[mk])}
         got.append(pix)
         cx += 6
 

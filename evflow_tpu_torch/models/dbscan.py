@@ -1,0 +1,149 @@
+"""DBSCAN over event and point clouds (counterpart of
+evflow_tpu/models/dbscan.py).
+
+Clusters are the connected components of the eps-graph over core points
+(at least core_min_pts points within eps, the point itself included);
+a border point joins the lowest-numbered component among its core
+neighbors. Components come from min-label propagation with pointer
+jumping, a host loop that reads one flag per round, as the JAX package's
+`lax.while_loop` runs while a label changed and fewer than max_iters
+rounds ran. Sizes outside [min_cluster_size, max_cluster_size] are
+filtered, then clusters are numbered by size, largest first, ties by the
+lower root index.
+
+`dbscan` computes (block, N) distance panels by `ops.distance`'s
+matmul-free form: on integer pixel coordinates every term is exact, so
+labels, core masks and iteration counts are the same bits on the card, on
+the CPU and in JAX. `dbscan_grid` precomputes the neighbor table with
+OPTICS' grid (`optics.compute_neighbors_grid`) and propagates over it; it
+takes the dense path where JAX does: no table, or a row over the table's
+width.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import DBSCANConfig
+from ..ops.distance import pairwise_sqdist, radius_neighbor_counts
+from .optics import compute_neighbors_grid
+
+_BIG = 2**31 - 1
+_FAR = 1e30   # invalid lanes are parked here: their distances overflow to inf or nan
+
+
+class DBSCANResult(NamedTuple):
+    labels: torch.Tensor        # int32 (N,) cluster id 0..k-1, -1 noise/filtered
+    num_clusters: torch.Tensor  # int32 ()
+    core_mask: torch.Tensor     # bool (N,)
+    iterations: torch.Tensor    # int32 () propagation rounds used
+
+
+def _neighbor_min_label(points, labels, core, eps2, block):
+    """nmin[i] = the lowest label of a core point within eps of i, or _BIG,
+    one (block, N) panel at a time."""
+    lab_src = torch.where(core, labels, _BIG)[None, :]
+    out = [torch.where(pairwise_sqdist(points[i:i + block], points) <= eps2,
+                       lab_src, _BIG).amin(1)
+           for i in range(0, points.shape[0], block)]
+    return torch.cat(out) if out else labels
+
+
+def _propagate(labels, core, nmin_of, max_iters):
+    """Min-label propagation over the cores with pointer jumping (each
+    round's jump reads that round's labels), while a label changed and
+    fewer than max_iters rounds ran. Returns (labels, rounds)."""
+    n = labels.shape[0]
+    it, changed = 0, True
+    while changed and it < max_iters:
+        new = torch.where(core, torch.minimum(labels, nmin_of(labels)), labels)
+        jumped = torch.where(new < n, new[new.clamp(0, n - 1).long()], new)
+        new = torch.minimum(new, jumped)
+        changed = bool((new != labels).any())
+        labels = new
+        it += 1
+    return labels, it
+
+
+def _finish(labels, core, it, cfg: DBSCANConfig) -> DBSCANResult:
+    """Component sizes, the size filter and the size-ordered numbering."""
+    n = labels.shape[0]
+    dev = labels.device
+    member = labels < n
+    seg = torch.where(member, labels, n).long()
+    sizes = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, seg, member.to(torch.int32))[:n]
+    lab_c = labels.clamp(0, n - 1).long()
+    size_of = torch.where(member, sizes[lab_c], 0)
+    keep = member & (size_of >= cfg.min_cluster_size) & (size_of <= cfg.max_cluster_size)
+    root_sizes = torch.where((sizes >= cfg.min_cluster_size)
+                             & (sizes <= cfg.max_cluster_size), sizes, 0)
+    order = torch.sort(-root_sizes, stable=True).indices
+    rank = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
+        0, order, torch.arange(n, dtype=torch.int32, device=dev))
+    return DBSCANResult(labels=torch.where(keep, rank[lab_c], -1),
+                        num_clusters=(root_sizes > 0).sum(dtype=torch.int32),
+                        core_mask=core,
+                        iterations=torch.tensor(it, dtype=torch.int32, device=dev))
+
+
+def dbscan(points: torch.Tensor, valid: torch.Tensor | None = None,
+           cfg: DBSCANConfig = DBSCANConfig(), block: int = 2048,
+           max_iters: int = 64) -> DBSCANResult:
+    """(N, D) points -> cluster labels, on the points' device; invalid lanes
+    get -1. Distances in (block, N) panels."""
+    n = points.shape[0]
+    dev = points.device
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    pts = torch.where(valid[:, None], points.to(torch.float32), _FAR)
+    eps2 = torch.tensor(cfg.eps * cfg.eps, dtype=torch.float32, device=dev)
+    counts = radius_neighbor_counts(pts, cfg.eps, valid, block)
+    core = valid & (counts >= cfg.core_min_pts)
+    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), _BIG)
+
+    def nmin_of(lab):
+        return _neighbor_min_label(pts, lab, core, eps2, block)
+
+    labels, it = _propagate(labels, core, nmin_of, max_iters)
+    labels = torch.where(core, labels, torch.where(valid, nmin_of(labels), _BIG))
+    return _finish(labels, core, it, cfg)
+
+
+def dbscan_grid(points: np.ndarray, cfg: DBSCANConfig = DBSCANConfig(),
+                max_neighbors: int = 256, max_iters: int = 64,
+                device="cuda") -> DBSCANResult:
+    """DBSCAN of (N, D) numpy points over a grid-bucketed neighbor table
+    (O(N 3^d B) once instead of O(N^2) per round), computed on `device`.
+    Falls back to `dbscan` (at its default max_iters, as in JAX) when the
+    grid does not apply or a neighborhood overflows the table: an
+    overflowed row could drop an eps-edge and split a cluster."""
+    pts_np = np.asarray(points, dtype=np.float32)
+    table = compute_neighbors_grid(pts_np, cfg.eps, cfg.core_min_pts,
+                                   max_neighbors=max_neighbors, device=device)
+    if table is None or bool((table.count > table.idx.shape[1]).any()):
+        return dbscan(torch.as_tensor(pts_np, device=device), cfg=cfg)
+    return _dbscan_from_table(table.idx, table.count, cfg, max_iters)
+
+
+def _dbscan_from_table(nbr_idx: torch.Tensor, counts: torch.Tensor,
+                       cfg: DBSCANConfig, max_iters: int) -> DBSCANResult:
+    """Propagation over an (N, K) neighbor table (-1 pads); eps-neighborhoods
+    are symmetric, so a border point's row holds its core neighbors."""
+    n = nbr_idx.shape[0]
+    dev = nbr_idx.device
+    core = counts >= cfg.core_min_pts
+    valid_nbr = nbr_idx >= 0
+    idx_c = nbr_idx.clamp(0, n - 1).long()
+    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), _BIG)
+
+    def nmin_of(lab):
+        src = torch.where(core, lab, _BIG)
+        return torch.where(valid_nbr, src[idx_c], _BIG).amin(1)
+
+    labels, it = _propagate(labels, core, nmin_of, max_iters)
+    labels = torch.where(core, labels, nmin_of(labels))
+    return _finish(labels, core, it, cfg)

@@ -9,14 +9,13 @@
 - corner+track (`corner_track_step`): SAE scatter-max -> one representative
   candidate per touched pixel -> eFAST -> stream-order compaction -> NMS ->
   tracker; at q = 1 the tile-predicated stencil, at q > 1 (micro slices)
-  per sub-slice scatter + detection;
+  per sub-slice scatter + detection, or with `micro_stack` one keyed
+  scatter into q stacked surfaces;
 - `corner_track_step_event_exact`: the per-event-exact detector, the
   reference semantics the q > 1 path is measured against;
 - `full_scan`: both chains per slice over a slice sequence — the main path.
 
 The JAX package's `lax.scan` over slices is an eager Python loop here.
-Not ported yet (ROADMAP queue 1): the snapshot-stack q > 1 backend
-(`micro_stack=True`).
 """
 
 from __future__ import annotations
@@ -33,9 +32,6 @@ from ..io.slicing import slice_by_count, slice_by_time
 
 from ..ops import efast, hash_dedup, nms as nms_ops, sae as sae_ops
 from . import aeclustering, aeclustering_kernel, fastcluster, tracker as tracker_mod
-
-_STACK_TODO = ("efast.micro_stack=True is not ported yet (ROADMAP queue 1, still "
-               "to port, item 1: the snapshot-stack q>1 backend)")
 
 
 def _as_tensors(device, *arrays):
@@ -355,10 +351,12 @@ def _micro_step(state: CornerTrackState, x, y, t, valid, armed, cfg: EngineConfi
     pick at most max(m // q, 64) representative candidates, detect them
     against the surface so far (the per-candidate ring gather, or with
     micro_dense the tile-predicated stencil); then the candidates of all
-    sub-slices, in order, go to NMS and the tracker."""
+    sub-slices, in order, go to NMS and the tracker. micro_stack (without
+    micro_dense) takes the snapshot-stack form, bit-equal to this one."""
     q = cfg.efast.micro_slices
     if cfg.efast.micro_stack and not cfg.efast.micro_dense:
-        raise NotImplementedError(_STACK_TODO)
+        new_sae, cx, cy, mask, n_dropped = stack_detect(state.sae, x, y, t, valid, cfg)
+        return _corners_to_tracks(mask & armed, cx, cy, state, new_sae, cfg, n_dropped)
     nsub = x.shape[0] // q
     m_sub = max(cfg.efast.max_candidates // q, 64)
     sae = state.sae
@@ -380,6 +378,40 @@ def _micro_step(state: CornerTrackState, x, y, t, valid, armed, cfg: EngineConfi
     corner_mask = torch.cat(masks) & armed
     return _corners_to_tracks(corner_mask, torch.cat(cxs), torch.cat(cys), state,
                               sae, cfg, torch.stack(drops).sum(dtype=torch.int32))
+
+
+def stack_detect(sae: torch.Tensor, x, y, t, valid, cfg: EngineConfig):
+    """The micro_stack detector on one slice: (new SAE, candidate x, y,
+    corner mask, dropped candidates), candidates of the q sub-slices
+    concatenated in order. The q surfaces after each sub-slice come from
+    one (q, H, W) scatter-max keyed by (sub, y, x) into planes that start
+    at 0 (invalid lanes keyed to sub q and dropped, out-of-range pixels
+    dropped), then a running maximum over the sub axis that starts from
+    the input surface: q in-place maxima, not torch.cummax, whose
+    (q, H, W) int64 indices would be 59 MB at DEFAULT. Candidates per
+    sub-slice, then each sub-slice's detection against its own plane.
+    Bit-equal to the serial micro path while the surface holds no
+    negative time (the planes' 0 lifts those, as in JAX)."""
+    q = cfg.efast.micro_slices
+    nsub = x.shape[0] // q
+    m_sub = max(cfg.efast.max_candidates // q, 64)
+    h, w = sae.shape
+    xr, yr, tr, vr = (a.reshape(q, nsub) for a in (x, y, t, valid))
+    sub = torch.arange(q, dtype=torch.int64, device=x.device)[:, None]
+    yi, oky = sae_ops.drop_index(yr.long(), h)
+    xi, okx = sae_ops.drop_index(xr.long(), w)
+    flat = torch.where(vr & oky & okx, (sub * h + yi) * w + xi, q * h * w)
+    planes = torch.zeros(q * h * w + 1, dtype=sae.dtype, device=sae.device).scatter_reduce(
+        0, flat.reshape(-1), tr.to(sae.dtype).reshape(-1), "amax")[:q * h * w].view(q, h, w)
+    torch.maximum(planes[0], sae, out=planes[0])
+    for k in range(1, q):
+        torch.maximum(planes[k], planes[k - 1], out=planes[k])
+    cands = [_representative_candidates(xr[k], yr[k], vr[k], m_sub, cfg) for k in range(q)]
+    masks = [efast.detect_corners(planes[k], cx, cy, cv, cfg.efast, cfg.sensor)
+             for k, (cx, cy, cv, _) in enumerate(cands)]
+    cxs, cys, _, drops = zip(*cands)
+    return (planes[q - 1].clone(), torch.cat(cxs), torch.cat(cys), torch.cat(masks),
+            torch.stack(drops).sum(dtype=torch.int32))
 
 
 def corner_track_step_event_exact(state: CornerTrackState, x: torch.Tensor,

@@ -7,7 +7,8 @@ two boundary monotonicity checks), and likewise an arc of 4..8 on circle4.
 
 - `detect_corners`: per-candidate test with a direct 36-point gather (the
   JAX package's 8x8-block gather layout works around the TPU gather unit
-  and is not carried over).
+  and is not carried over); `detect_corners_stacked`, the same over a
+  stack of surface snapshots at once.
 - `corner_mask_stencil`: the dense mask over (band x 128-px) tiles, computed
   by the CUDA kernel csrc/efast_stencil.cu on the card, where inactive tiles
   are skipped and come back False. On CPU tensors it takes its plain
@@ -262,10 +263,35 @@ def detect_corners(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                    sensor: SensorConfig = SensorConfig()) -> torch.Tensor:
     """(N,) bool corner mask of candidate events against the SAE, which must
     already hold this slice's events. Border events are not candidates."""
-    h, w = sae.shape
+    return _candidates(x, y, valid, cfg, sensor) & _ring_test(sae, x, y, cfg)
+
+
+def detect_corners_stacked(saes: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                           valid: torch.Tensor, cfg: EFastConfig = EFastConfig(),
+                           sensor: SensorConfig = SensorConfig()) -> torch.Tensor:
+    """(Q, M) corner mask of Q snapshots' candidates at once: snapshot q
+    (saes[q], (Q, H, W)) against candidates x[q], y[q], valid[q]. The stack
+    is viewed as one (Q*H, W) image with each candidate's y offset by q*H;
+    a ring never crosses into the next snapshot, since candidates within
+    `border` of an edge are rejected first. Bit-identical to per-snapshot
+    `detect_corners`."""
+    q, h, w = saes.shape
+    off = (torch.arange(q, dtype=y.dtype, device=y.device) * h)[:, None]
+    found = _ring_test(saes.reshape(q * h, w), x.reshape(-1), (y + off).reshape(-1), cfg)
+    return _candidates(x, y, valid, cfg, sensor) & found.reshape(q, -1)
+
+
+def _candidates(x, y, valid, cfg: EFastConfig, sensor: SensorConfig) -> torch.Tensor:
     cs = cfg.border
-    cand = valid & (x >= cs) & (x < sensor.width - cs) & (y >= cs) \
+    return valid & (x >= cs) & (x < sensor.width - cs) & (y >= cs) \
         & (y < sensor.height - cs)
+
+
+def _ring_test(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               cfg: EFastConfig) -> torch.Tensor:
+    """Both streak tests on the 36 ring samples around each (x, y), the
+    ring's pixels clamped into the surface."""
+    h, w = sae.shape
     dy, dx = _ring_offsets(cfg)
     dy = torch.tensor(dy, dtype=y.dtype, device=y.device)
     dx = torch.tensor(dx, dtype=x.dtype, device=x.device)
@@ -275,4 +301,4 @@ def detect_corners(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     n3 = len(CIRCLE3)
     f3 = _streak_any(rings[:, :n3], cfg.streak3_min, cfg.streak3_max)
     f4 = _streak_any(rings[:, n3:], cfg.streak4_min, cfg.streak4_max)
-    return cand & f3 & f4
+    return f3 & f4

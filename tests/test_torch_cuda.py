@@ -335,3 +335,196 @@ def test_exact_kernel_limits(cuda):
                 ClusterConfig(kappa=2)):
         with pytest.raises(ValueError):
             aek.update_slice_kernel(ae.init_state(cfg, device=cuda), x, x, x, x, v, cfg)
+
+
+# ---------------------------------------------------------------- app C and D
+
+def _pixel_cloud(seed, n=3000):
+    """Event-like integer pixels: three blobs and scattered noise."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.normal(c, 8.0, (n // 3, 2))
+                          for c in ((100, 100), (300, 200), (200, 60))]
+                         + [rng.uniform(0, (400, 300), (n // 10, 2))])
+    return np.clip(np.round(pts), 0, 399).astype(np.float32)
+
+
+def _metric_cloud(seed, n=20000):
+    """A noisy plane z = 0.3 and two blobs above it, in metres."""
+    rng = np.random.default_rng(seed)
+    plane = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+                      0.3 + rng.normal(0, 0.005, n)], 1)
+    blobs = [rng.normal(c, 0.03, (n // 4, 3)) for c in ((0.3, 0.3, 0.6), (0.7, 0.6, 0.5))]
+    return np.concatenate([plane] + blobs).astype(np.float32)
+
+
+def test_kmeans_on_card_matches_cpu(cuda):
+    """App D's ramp and pixel blobs: counts and iters equal, centroids
+    within 1e-4, labels equal except at near-ties; two calls bit-equal."""
+    from evflow_tpu_torch.models import kmeans
+    ramp = (synthetic.kmeans_ramp_data(2048), synthetic.kmeans_initial_centroids())
+    pix = _pixel_cloud(1)
+    for pts, init in (ramp, (pix, pix[::400][:8])):
+        got = kmeans.kmeans(torch.as_tensor(pts, device=cuda), torch.as_tensor(init, device=cuda))
+        again = kmeans.kmeans(torch.as_tensor(pts, device=cuda),
+                              torch.as_tensor(init, device=cuda))
+        interop.assert_trees_close(got, again, rtol=0, atol=0)
+        ref = kmeans.kmeans(torch.as_tensor(pts), torch.as_tensor(init))
+        assert torch.equal(got.counts.cpu(), ref.counts) and int(got.iters) == int(ref.iters)
+        torch.testing.assert_close(got.centroids.cpu(), ref.centroids, rtol=0, atol=1e-4)
+        differ = (got.labels.cpu() != ref.labels).numpy()
+        d = np.sort(np.linalg.norm(pts[:, None] - ref.centroids.numpy()[None], axis=2), 1)
+        assert (d[differ, 1] - d[differ, 0] < 1e-3).all()
+
+
+@pytest.mark.parametrize("block", [2048, 333])
+def test_dbscan_on_card_bit_equal_on_pixels(cuda, block):
+    """Dense DBSCAN on integer pixels: labels, clusters, core mask and
+    iterations the same bits as on the CPU."""
+    from evflow_tpu_torch.config import DBSCANConfig
+    from evflow_tpu_torch.models import dbscan
+    pts = _pixel_cloud(2)
+    valid = np.random.default_rng(3).random(len(pts)) < 0.95
+    cfg = DBSCANConfig(min_cluster_size=50)
+    got = dbscan.dbscan(torch.as_tensor(pts, device=cuda), torch.as_tensor(valid, device=cuda),
+                        cfg=cfg, block=block)
+    ref = dbscan.dbscan(torch.as_tensor(pts), torch.as_tensor(valid), cfg=cfg, block=block)
+    interop.assert_trees_close(got, ref, rtol=0, atol=0)
+    assert int(got.num_clusters) == 3
+
+
+@pytest.mark.parametrize("kind", ["pixels", "metric"])
+def test_grid_neighbors_and_dbscan_grid_on_card(cuda, kind):
+    """compute_neighbors_grid and dbscan_grid on the card against the CPU:
+    neighbor indices, counts and DBSCAN results equal, distances within
+    one ulp; the table holds every row, so dbscan_grid took the grid."""
+    from evflow_tpu_torch.config import DBSCANConfig
+    from evflow_tpu_torch.models import dbscan, optics
+    if kind == "pixels":
+        pts, cfg = _pixel_cloud(4), DBSCANConfig(min_cluster_size=50)
+    else:
+        pts = _metric_cloud(5, n=8000)
+        pts = pts[pts[:, 2] > 0.4]                    # the two blobs
+        cfg = DBSCANConfig(eps=0.05, core_min_pts=10, min_cluster_size=100)
+    got = optics.compute_neighbors_grid(pts, cfg.eps, cfg.core_min_pts, max_neighbors=2048,
+                                        device=cuda)
+    ref = optics.compute_neighbors_grid(pts, cfg.eps, cfg.core_min_pts, max_neighbors=2048,
+                                        device="cpu")
+    assert got is not None and int(got.count.max()) <= got.idx.shape[1]
+    for name in ("idx", "count"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    for name in ("dist", "core_dist"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(ref, name),
+                                   rtol=2.5e-7, atol=0)
+    res = dbscan.dbscan_grid(pts, cfg, max_neighbors=2048, device=cuda)
+    interop.assert_trees_close(res, dbscan.dbscan_grid(pts, cfg, max_neighbors=2048,
+                                                       device="cpu"), rtol=0, atol=0)
+    assert int(res.num_clusters) == (3 if kind == "pixels" else 2)
+
+
+def test_voxel_and_ransac_on_card(cuda):
+    """Voxel counts equal and centroids within 1e-6 of the CPU's, two calls
+    bit-equal; RANSAC (the same seeded draw) gives the CPU's plane and
+    inliers."""
+    from evflow_tpu_torch.models import pointcloud
+    pts = _metric_cloud(6)
+    voxels = {}
+    for buckets in (1 << 16, 1000):
+        got = pointcloud.voxel_downsample(torch.as_tensor(pts, device=cuda), 0.01,
+                                          num_buckets=buckets)
+        again = pointcloud.voxel_downsample(torch.as_tensor(pts, device=cuda), 0.01,
+                                            num_buckets=buckets)
+        interop.assert_trees_close(got, again, rtol=0, atol=0)
+        ref = pointcloud.voxel_downsample(torch.as_tensor(pts), 0.01, num_buckets=buckets)
+        assert int(got.count) == int(ref.count) and torch.equal(got.valid.cpu(), ref.valid)
+        torch.testing.assert_close(got.points.cpu(), ref.points, rtol=0, atol=1e-6)
+        voxels[buckets] = got
+    vp = voxels[1 << 16].points[voxels[1 << 16].valid]
+    plane = pointcloud.ransac_plane(vp, threshold=0.02, iters=100)
+    pref = pointcloud.ransac_plane(vp.cpu(), threshold=0.02, iters=100)
+    assert torch.equal(plane.inliers.cpu(), pref.inliers)
+    torch.testing.assert_close(plane.coeffs.cpu(), pref.coeffs, rtol=0, atol=1e-6)
+    assert abs(float(plane.coeffs[2])) > 0.95
+
+
+def test_float_segment_sums_deterministic(cuda):
+    """masked_segment_sum on floats: two calls on the card give the same
+    bits (no float atomics), 1-D and 2-D values, and match the CPU's
+    in-order sums within f32 order."""
+    from evflow_tpu_torch.ops import segment
+    rng = np.random.default_rng(7)
+    n, k = 1 << 18, 1000
+    ids = torch.as_tensor(rng.integers(0, k, n).astype(np.int32), device=cuda)
+    ids[: n // 2] = 3                                # one long run
+    valid = torch.as_tensor(rng.random(n) < 0.9, device=cuda)
+    for vals in (rng.normal(0, 100, n), rng.normal(0, 100, (n, 3))):
+        v = torch.as_tensor(vals.astype(np.float32), device=cuda)
+        a = segment.masked_segment_sum(v, ids, k, valid)
+        b = segment.masked_segment_sum(v, ids, k, valid)
+        assert torch.equal(a, b)
+        ref = segment.masked_segment_sum(v.cpu(), ids.cpu(), k, valid.cpu())
+        torch.testing.assert_close(a.cpu(), ref, rtol=1e-4, atol=1e-2)
+
+
+def test_neighbor_counts_ignore_matmul_precision(cuda):
+    """Under float32 matmul precision "high" (TF32 allowed in matmuls),
+    neighbor counts and DBSCAN on coordinates around 1e3 are unchanged
+    and equal the float64 oracle's (tests/test_ops.py's points and gate):
+    no matmul carries the distances."""
+    from evflow_tpu_torch.config import DBSCANConfig
+    from evflow_tpu_torch.models import dbscan
+    from evflow_tpu_torch.ops import distance
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0, 1000, (2048, 2)).astype(np.float32)
+    oracle = (((pts[:, None, :].astype(np.float64) - pts[None]) ** 2).sum(-1)
+              <= 5.64 ** 2).sum(1)
+    p = torch.as_tensor(pts, device=cuda)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        runs = []
+        for precision in ("highest", "high"):
+            torch.set_float32_matmul_precision(precision)
+            runs.append((distance.radius_neighbor_counts(p, 5.64).cpu(),
+                         dbscan.dbscan(p, cfg=DBSCANConfig(eps=5.64, core_min_pts=3,
+                                                           min_cluster_size=3))))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    np.testing.assert_array_equal(runs[0][0].numpy(), oracle)
+    assert torch.equal(runs[0][0], runs[1][0])
+    interop.assert_trees_close(runs[0][1], runs[1][1], rtol=0, atol=0)
+
+
+def test_stack_path_on_card_matches_cpu(cuda):
+    """full_scan at q=8 with micro_stack on the card: the fastcluster
+    kernels launch each slice, the corner chain equals the card's serial
+    q=8 run bit for bit and the CPU's within the tracker tolerance."""
+    n = 2048
+    cfg = dataclasses.replace(
+        DEFAULT, sensor=SensorConfig(width=256, height=120),
+        slicing=SliceConfig(n_events=n),
+        efast=dataclasses.replace(DEFAULT.efast, max_candidates=1024, micro_slices=8),
+        nms=NMSConfig(max_corners=128), tracker=TrackerConfig(max_tracks=64),
+        cluster=ClusterConfig(max_clusters=32))
+    stack = dataclasses.replace(cfg, efast=dataclasses.replace(cfg.efast, micro_stack=True))
+    stream = synthetic.moving_blob_stream(
+        num_slices=6, events_per_slice=n,
+        blob_centers=((60.0, 50.0), (180.0, 70.0), (120.0, 30.0)),
+        velocities=((4.0, 1.0), (-3.0, 2.0), (1.0, -1.0)), sigma=6.0,
+        width=256, height=120)
+    sl = slice_by_count(stream, n, drop_partial=True)
+    arrays = (sl.x, sl.y, (sl.t - int(stream.t[0])).astype(np.int32), sl.valid_mask())
+
+    def scan(device, c):
+        cl = fastcluster.init_state(c.cluster, device=device)
+        co = pipeline.init_corner_state(c, device=device)
+        return pipeline.full_scan(cl, co, *[torch.as_tensor(a, device=device)
+                                            for a in arrays], c)
+
+    kernels.reset_launches()
+    got = scan(cuda, stack)
+    assert kernels.LAUNCHES["assign_manhattan"] == 6 and kernels.LAUNCHES["cluster_stats"] == 6
+    interop.assert_trees_close(got, scan(cuda, cfg), rtol=0, atol=0, what="stack vs serial")
+    (gcl, gco), (gclo, gcoo) = got
+    (wcl, wco), (wclo, wcoo) = scan("cpu", stack)
+    interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
+    interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
+    assert int(gcoo.num_corners.sum()) > 0

@@ -19,7 +19,7 @@ from evflow_tpu import io as jio
 from evflow_tpu.io import evt2 as jevt2, evt3 as jevt3
 from evflow_tpu_torch import config, fidelity, io
 from evflow_tpu_torch.io import evt2, evt3
-from evflow_tpu_torch.models import aeclustering, fastcluster, pipeline, tracker
+from evflow_tpu_torch.models import aeclustering, dbscan, fastcluster, optics, pipeline, tracker
 from evflow_tpu_torch.ops import sae
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -122,6 +122,9 @@ ENTRY_POINTS = {
     "tracker.init_state": lambda: tracker.init_state(),
     "sae.init_sae": lambda: sae.init_sae(),
     "fidelity.corner_agreement": lambda: fidelity.corner_agreement(8),
+    "optics.compute_neighbors_grid": lambda: optics.compute_neighbors_grid(
+        np.zeros((4, 2), np.float32), 1.0, 2),
+    "dbscan.dbscan_grid": lambda: dbscan.dbscan_grid(np.zeros((4, 2), np.float32)),
 }
 
 
@@ -137,7 +140,8 @@ def test_default_call_without_a_card_raises(name):
 
 @pytest.mark.parametrize("fn", [pipeline.init_corner_state, fastcluster.init_state,
                                 aeclustering.init_state, tracker.init_state,
-                                sae.init_sae, fidelity.corner_agreement])
+                                sae.init_sae, fidelity.corner_agreement,
+                                optics.compute_neighbors_grid, dbscan.dbscan_grid])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

@@ -214,19 +214,30 @@ def test_compat_stride2_matches_jax():
         interop.assert_trees_close((tst, to), (jst, jo), **CLUSTER_TOL)
 
 
-def test_unported_branches_raise():
-    """The snapshot-stack q>1 backend is not ported; micro_dense takes
-    precedence over it, as in JAX."""
+def test_unported_branches_raise(monkeypatch):
+    """micro_dense takes precedence over micro_stack, as in JAX: with both
+    set, each sub-slice goes through the dense detector and the outputs
+    are those of micro_dense alone; micro_stack alone runs the stack path
+    (no longer raises) and never calls the dense detector."""
     stack = dataclasses.replace(CFG, efast=dataclasses.replace(
         CFG.efast, micro_slices=8, micro_stack=True))
-    x, y, t, v = [torch.as_tensor(a[0]) for a in _slices(1)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.corner_track_step(pipeline.init_corner_state(stack, device="cpu"),
-                                   x, y, t, v, stack)
-    dense = dataclasses.replace(stack, efast=dataclasses.replace(stack.efast,
-                                                                 micro_dense=True))
-    pipeline.corner_track_step(pipeline.init_corner_state(dense, device="cpu"),
-                               x, y, t, v, dense)
+    both = dataclasses.replace(stack, efast=dataclasses.replace(stack.efast,
+                                                                micro_dense=True))
+    dense = dataclasses.replace(both, efast=dataclasses.replace(both.efast,
+                                                                micro_stack=False))
+    x, y, t, v = [torch.as_tensor(a[1]) for a in _slices(2)]
+    calls = []
+    real = pipeline.efast.detect_corners_dense
+    monkeypatch.setattr(pipeline.efast, "detect_corners_dense",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    outs = {}
+    for name, cfg in (("stack", stack), ("both", both), ("dense", dense)):
+        calls.clear()
+        st = pipeline.init_corner_state(cfg, device="cpu")._replace(
+            slice_idx=torch.ones((), dtype=torch.int32))
+        outs[name] = (pipeline.corner_track_step(st, x, y, t, v, cfg), len(calls))
+    assert outs["stack"][1] == 0 and outs["both"][1] == outs["dense"][1] == 8
+    interop.assert_trees_close(outs["both"][0], outs["dense"][0], rtol=0, atol=0)
 
 
 def test_port_imports_no_jax():
