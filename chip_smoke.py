@@ -44,7 +44,20 @@ Phases, one line each:
      serial and stack in the order serial, stack, stack, serial;
   9. k-means (`kmeans_phase`), 10. DBSCAN dense and grid (`dbscan_phase`),
      11. app C's point-cloud chain (`pointcloud_phase`): each against its
-     CPU run, with ms per call.
+     CPU run, with ms per call;
+ 12. OPTICS, app B (`optics_phase`, a line per case):
+     compute_reachability_dists through method "auto" in four cases: slice 3's unique pixels at the
+     reference driver's eps 10, min_pts 2 (then the threshold-10 split),
+     and the reference benchmark's uniform clouds of 100,000 points in a
+     1000-wide volume at d = 2, 3 and 6 (min_pts 10, eps estimated, K 64).
+     Each prints the backends that built its table, K after the auto-raise,
+     the widest row, and ms per call (median of 3) split into the table,
+     its move to the host and the sweep. Checks: the pixels' table, order,
+     reach and clusters equal to the CPU run's, as are the d = 2 and d = 3
+     clouds' (their CPU runs take seconds); every 97th row of each cloud
+     against a float64 difference-form oracle; the native sweep equal to
+     the Python loop on the card's table, and their xi clusters (chi 0.05)
+     equal.
 Every phase's line carries the card's name and power limit beside its
 times. Then one JSON line of per-kernel results and, last, the status line
 {"ok": true, "device": {...}}. A kernel's `launches` is its count over the
@@ -498,6 +511,181 @@ def pointcloud_phase(dev, card) -> str:
             f"{int(c16.num_clusters)} clusters")
 
 
+# phase 12: optics_bench.py's clouds (benchmark.cpp:62-103) and app B's
+# driver parameters (cluster_event_data.cpp:429-541)
+OPTICS_N = 100_000
+OPTICS_DIMS = (2, 3, 6)
+OPTICS_MIN_PTS = 10
+OPTICS_K = 64
+OPTICS_CPU_DIMS = (2, 3)      # dense d = 6 on the CPU would take many minutes
+OPTICS_ORACLE_STRIDE = 97
+OPTICS_EDGE = 0.02            # oracle pairs this close to eps are left out
+OPTICS_CHI = 0.05
+APP_B_MIN_PTS, APP_B_EPS, APP_B_THRESHOLD = 2, 10.0, 10.0
+
+
+@contextlib.contextmanager
+def optics_backends():
+    """Within it, the names of the neighbor tables built, in call order
+    ("declined" where a backend returned None), gather in the yielded list."""
+    from evflow_tpu_torch.models import optics
+    names = {"compute_neighbors_cellpair": "cellpair", "compute_neighbors_grid": "grid",
+             "compute_neighbors": "dense"}
+    saved = {name: getattr(optics, name) for name in names}
+    used = []
+
+    def recorded(name):
+        def call(*args, **kwargs):
+            table = saved[name](*args, **kwargs)
+            used.append(names[name] + ("" if table is not None else " declined"))
+            return table
+        return call
+
+    for name in names:
+        setattr(optics, name, recorded(name))
+    try:
+        yield used
+    finally:
+        for name, fn in saved.items():
+            setattr(optics, name, fn)
+
+
+def optics_call(pts, min_pts, eps, k, dev):
+    """One compute_reachability_dists call in its three parts: the table
+    on `dev` (ending in a synchronize), its move to the host, the sweep.
+    Returns the table, the host table, the reachability list, the
+    RuntimeWarnings and the parts' ms."""
+    import warnings
+    from evflow_tpu_torch.models import optics
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always", RuntimeWarning)
+        table = optics.neighbor_table(pts, min_pts, eps, max_neighbors=k, device=dev)
+    if table.idx.is_cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host = optics.table_to_host(table)
+    t2 = time.perf_counter()
+    rd = optics.sweep(*host)
+    t3 = time.perf_counter()
+    warned = [str(w.message) for w in rec if issubclass(w.category, RuntimeWarning)]
+    return table, host, rd, warned, [
+        (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3]
+
+
+def oracle_rows(pts, eps, min_pts, table, host) -> int:
+    """Every OPTICS_ORACLE_STRIDE-th row of `table` against a float64
+    difference-form oracle on the same float32 coordinates: the neighbor
+    set, leaving out pairs within OPTICS_EDGE of eps, and where no pair is
+    that close, the count and the core distance (within 1e-5). Returns the
+    rows checked."""
+    idx, dist, core = host
+    count = table.count.cpu().numpy()
+    p = np.asarray(pts, np.float32).astype(np.float64)
+    rows = np.arange(0, len(p), OPTICS_ORACLE_STRIDE)
+    for chunk in np.array_split(rows, -(-len(rows) // 32)):
+        d = np.sqrt(((p[chunk, None, :] - p[None, :, :]) ** 2).sum(-1))
+        for r, row in zip(chunk.tolist(), d):
+            edge = np.abs(row - eps) <= OPTICS_EDGE
+            want = set(np.nonzero((row <= eps) & ~edge)[0].tolist())
+            got = set(idx[r][np.isfinite(dist[r])].tolist()) - set(np.nonzero(edge)[0].tolist())
+            assert got == want, (r, sorted(got ^ want)[:8])
+            if not edge.any():
+                within = np.sort(row[row <= eps])
+                assert count[r] == len(within), (r, count[r], len(within))
+                want_core = within[min_pts - 1] if len(within) >= min_pts else np.inf
+                assert np.isclose(core[r], want_core, rtol=1e-5, atol=0), (r, core[r], want_core)
+    return len(rows)
+
+
+def compare_cpu_run(label, table, rd, warned, ref, ref_rd, ref_warned, exact) -> str:
+    """The card's table and sweep against the CPU run's: indices, counts
+    and warnings equal; distances bit-equal where `exact` (integer
+    coordinates: every term exact), else within one float32 ulp (the
+    card's sqrt against the CPU's, as phase 10's grid table); then the
+    order equal and reach within rtol 1e-6, or, where a one-ulp distance
+    reorders a tie, the JAX tests' criteria: the same unreached points and
+    at least 0.995 of reaches within rtol 1e-6."""
+    for name in ("idx", "count"):
+        assert torch.equal(getattr(table, name).cpu(), getattr(ref, name)), (label, name)
+    assert warned == ref_warned, (warned, ref_warned)
+    ulps = 0.0
+    for name in ("dist", "core_dist"):
+        got, want = getattr(table, name).cpu(), getattr(ref, name)
+        if exact:
+            assert torch.equal(got, want), (label, name)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin), (label, name)
+        rel = ((got[fin] - want[fin]).abs() / want[fin].abs().clamp_min(1e-30)).max()
+        ulps = max(ulps, float(rel) / 2.0 ** -24)
+        assert ulps <= 2.0, (label, name, ulps)
+    n = len(rd)
+    a, b = np.full(n, -2.0), np.full(n, -2.0)
+    for r in rd:
+        a[r.point_index] = r.reach_dist
+    for r in ref_rd:
+        b[r.point_index] = r.reach_dist
+    moved = sum(p.point_index != q.point_index for p, q in zip(rd, ref_rd))
+    assert ((a < 0) == (b < 0)).all(), label
+    close = np.isclose(a[a >= 0], b[b >= 0], rtol=1e-6, atol=0)
+    assert (moved == 0 and close.all()) if exact else close.mean() >= 0.995, (label, moved)
+    return (f"table {'bit-equal' if exact else 'indices and counts equal, distances within '
+                       f'{ulps:.2f} x 2^-24 relative'} to the CPU run's, {moved} of {n} "
+            f"visits in another place, {int((~close).sum())} reaches off by more than 1e-6")
+
+
+def optics_phase(dev, card, x, y, valid, cfg) -> None:
+    """Phase 12 (see the module docstring), one line per case."""
+    from evflow_tpu_torch.io import synthetic
+    from evflow_tpu_torch.models import optics
+    from evflow_tpu_torch.ops import hash_dedup
+    ded = hash_dedup.dedup_mask(x, y, valid, cfg.dedup, cfg.sensor)
+    # (label, points, min_pts, eps, K, pixels: integer coordinates)
+    cases = [("app B, slice 3's unique pixels",
+              torch.stack([x, y], 1)[ded.unique_mask].cpu().numpy().astype(np.float64),
+              APP_B_MIN_PTS, APP_B_EPS, 256, True)]
+    for d in OPTICS_DIMS:
+        pts = synthetic.uniform_cloud(OPTICS_N, d, 1000.0, seed=1)
+        cases.append((f"uniform cloud d={d}", pts, OPTICS_MIN_PTS,
+                      optics.epsilon_estimation(pts, OPTICS_MIN_PTS), OPTICS_K, False))
+    for label, pts, min_pts, eps, k, pixels in cases:
+        t_case = time.perf_counter()
+        with optics_backends() as used:
+            table, host, rd, warned, _ = optics_call(pts, min_pts, eps, k, dev)
+        widest = int(table.count.max())
+        assert widest <= table.idx.shape[1], (label, widest, tuple(table.idx.shape))
+        checks = []
+        if pixels or pts.shape[1] in OPTICS_CPU_DIMS:
+            ref, _, ref_rd, ref_warned, cpu_ms = optics_call(pts, min_pts, eps, k, "cpu")
+            checks.append(compare_cpu_run(label, table, rd, warned, ref, ref_rd, ref_warned,
+                                          exact=pixels)
+                          + f" (the CPU run took {sum(cpu_ms):.0f} ms)")
+        if pixels:
+            clusters = optics.get_cluster_indices(rd, APP_B_THRESHOLD)
+            assert clusters == optics.get_cluster_indices(ref_rd, APP_B_THRESHOLD), label
+            checks.append(f"{len(clusters)} clusters at threshold {APP_B_THRESHOLD:g} "
+                          f"({sum(len(c) > 1 for c in clusters)} of more than one point), "
+                          "equal to the CPU run's")
+        else:
+            checks.append(f"{oracle_rows(pts, eps, min_pts, table, host)} rows equal to the "
+                          "float64 oracle")
+        rd_py = optics.sweep(*host, use_native=False)
+        assert rd_py == rd, f"{label}: native and Python sweeps differ"
+        flat = optics.get_chi_clusters_flat(rd, OPTICS_CHI, min_pts)
+        assert flat == optics.get_chi_clusters_flat(rd_py, OPTICS_CHI, min_pts), label
+        checks.append(f"native sweep equal to the Python loop, {len(flat)} xi clusters "
+                      f"(chi {OPTICS_CHI}) equal")
+        rounds = [optics_call(pts, min_pts, eps, k, dev)[4] for _ in range(3)]
+        total = [sum(r) for r in rounds]
+        med = rounds[int(np.argsort(total)[1])]
+        print(f"OPTICS on {card}: {label}: n {len(pts)}, d {pts.shape[1]}, eps {eps:.6g}, "
+              f"min_pts {min_pts}, tables {used}, K {table.idx.shape[1]} after the auto-raise "
+              f"({warned or 'none'}), widest row {widest}; {'; '.join(checks)}; ms per call "
+              f"{sum(med):.3f} (table {med[0]:.3f}, host {med[1]:.3f}, sweep {med[2]:.3f}; "
+              f"rounds {[round(t, 3) for t in total]}); case "
+              f"{time.perf_counter() - t_case:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -819,10 +1007,11 @@ def main() -> int:
           f"{fidelity.JAX_AGREEMENT[8]!r}); ms/slice in the order serial, stack, stack, "
           f"serial: serial {stack_ms['serial']}, stack {stack_ms['stack']}", flush=True)
 
-    # ---- 9-11. k-means, DBSCAN, the point-cloud chain
+    # ---- 9-12. k-means, DBSCAN, the point-cloud chain, OPTICS
     print(kmeans_phase(dev, card, xs[3], ys[3], vs[3]), flush=True)
     print(dbscan_phase(dev, card, xs[3], ys[3], vs[3], cfg), flush=True)
     print(pointcloud_phase(dev, card), flush=True)
+    optics_phase(dev, card, xs[3], ys[3], vs[3], cfg)
 
     sources = {"efast_stencil": ("evflow_tpu_torch/csrc/efast_stencil.cu",
                                  "evflow_tpu/ops/efast.py:397"),

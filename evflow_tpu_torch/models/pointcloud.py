@@ -8,14 +8,13 @@ threshold 0.02) and its removal, before DBSCAN (`models/dbscan.py`).
   wrap-around (its int64 is int32 with x64 off), so any bucket count
   gives JAX's buckets. Sums are `ops.segment`'s deterministic segmented
   sums: the same bits on two calls on the card.
-- `ransac_plane`: all hypotheses scored at once. JAX draws them with
-  jax.random (threefry), which torch cannot reproduce; the port draws
-  (iters, 3) indices from a torch.Generator seeded by `seed`, on the CPU
-  whatever the device, so the card and the CPU score the same ones.
-  `_score_planes` scores given indices; the tests feed it JAX's draw.
-  Point-to-plane distances are explicit sums of 3 products, out of reach
-  of any matmul precision setting (TF32 rounding is comparable to the
-  0.02 threshold).
+- `ransac_plane`: all hypotheses scored at once. The (iters, 3) indices
+  are JAX's own draw at the same seed, `jax.random.randint` on
+  `PRNGKey(seed)`, reproduced in numpy on the host by `ops.jax_random`
+  and moved to the points' device, so the card, the CPU and JAX score the
+  same hypotheses. `_score_planes` scores given indices. Point-to-plane
+  distances are explicit sums of 3 products, out of reach of any matmul
+  precision setting (TF32 rounding is comparable to the 0.02 threshold).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import jax_random
 from ..ops.segment import masked_segment_sum, segment_counts
 
 _PRIMES = (73856093, 19349663, 83492791)
@@ -85,12 +85,12 @@ def ransac_plane(points: torch.Tensor, valid: torch.Tensor | None = None,
                  threshold: float = 0.02, iters: int = 100,
                  seed: int = 0) -> PlaneResult:
     """SACMODEL_PLANE RANSAC (pcl_cluster.cpp:66-77) on the points' device:
-    `iters` 3-point hypotheses drawn from a torch.Generator seeded by
-    `seed` (on the CPU, then moved), scored at once; the most inliers win,
-    the first such hypothesis on a tie."""
+    `iters` 3-point hypotheses, drawn as JAX draws them at `seed` (threefry,
+    on the host, then moved), scored at once; the most inliers win, the
+    first such hypothesis on a tie."""
     n = points.shape[0]
-    gen = torch.Generator().manual_seed(seed)
-    idx = torch.randint(0, n, (iters, 3), generator=gen).to(points.device)
+    draw = jax_random.randint(jax_random.prng_key(seed), (iters, 3), 0, n)
+    idx = torch.as_tensor(draw, device=points.device)
     return _score_planes(points, valid, idx, threshold)
 
 

@@ -528,3 +528,36 @@ def test_stack_path_on_card_matches_cpu(cuda):
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
     interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
     assert int(gcoo.num_corners.sum()) > 0
+
+
+# ---------------------------------------------------------------- app B
+
+@pytest.mark.parametrize("method", ["cellpair", "grid", "dense", "certified"])
+def test_optics_on_card_matches_cpu(cuda, method):
+    """OPTICS on integer pixels: each backend's table on the card has the
+    CPU's bits (after the auto-raise, where a neighborhood overflows K),
+    and the sweeps give the same order and reach."""
+    from evflow_tpu_torch.models import optics
+    pts = _pixel_cloud(7)
+    got = optics.neighbor_table(pts, 4, 6.0, max_neighbors=64, method=method, device=cuda)
+    ref = optics.neighbor_table(pts, 4, 6.0, max_neighbors=64, method=method, device="cpu")
+    for name in got._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    host = [optics.table_to_host(t) for t in (got, ref)]
+    assert optics.sweep(*host[0]) == optics.sweep(*host[1])
+
+
+def test_optics_dense_ties_on_card(cuda):
+    """36 neighbors at exactly one distance and K = 8: the card keeps the
+    lowest indices, as lax.top_k does and as the CPU run does."""
+    from evflow_tpu_torch.models import optics
+    ring = [(5, 0), (0, 5), (-5, 0), (0, -5), (3, 4), (4, 3), (-3, 4), (-4, 3),
+            (3, -4), (4, -3), (-3, -4), (-4, -3)]
+    pts = np.array([(0, 0)] + ring * 3 + [(40, 40)], np.float64)
+    pts = pts[np.concatenate([[0], 1 + np.random.default_rng(0).permutation(len(pts) - 1)])]
+    for fn in (optics.compute_neighbors, optics.compute_neighbors_certified):
+        got = fn(pts, 6.0, 3, max_neighbors=8, device=cuda)
+        ref = fn(pts, 6.0, 3, max_neighbors=8, device="cpu")
+        assert torch.equal(got.idx.cpu(), ref.idx)
+        tied = np.nonzero(np.hypot(*pts.T) == 5.0)[0]
+        assert got.idx[0].tolist() == [0] + sorted(tied.tolist())[:7]

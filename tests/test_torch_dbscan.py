@@ -240,8 +240,8 @@ def test_ransac_scoring_with_jax_indices(with_valid):
 
 
 def test_seeded_ransac_plane_and_removal():
-    """tests/test_dbscan.py's plane scene through the port's own seeded
-    draw: the plane is found, the blob kept, the normal vertical."""
+    """tests/test_dbscan.py's plane scene through the port's draw at the
+    default seed: the plane is found, the blob kept, the normal vertical."""
     rng = np.random.default_rng(5)
     plane_pts = np.stack([rng.uniform(0, 1, 500), rng.uniform(0, 1, 500),
                           np.full(500, 0.3) + rng.normal(0, 0.005, 500)], 1)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of the JAX package, its own
-copies of `config` and `io` stay equal to the JAX package's, and its entry
-points run on the card unless the caller asks for the CPU."""
+copies of `config`, `io`, OPTICS' host code and `utils` stay equal to the
+JAX package's, and its entry points run on the card unless the caller asks
+for the CPU."""
 
 import ast
 import dataclasses
@@ -17,10 +18,13 @@ import torch
 from evflow_tpu import config as jconfig
 from evflow_tpu import io as jio
 from evflow_tpu.io import evt2 as jevt2, evt3 as jevt3
+from evflow_tpu.models import optics as joptics
+from evflow_tpu.utils import plots as jplots, ppm as jppm
 from evflow_tpu_torch import config, fidelity, io
 from evflow_tpu_torch.io import evt2, evt3
 from evflow_tpu_torch.models import aeclustering, dbscan, fastcluster, optics, pipeline, tracker
 from evflow_tpu_torch.ops import sae
+from evflow_tpu_torch.utils import plots, ppm
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "evflow_tpu_torch").rglob("*.py"))
@@ -125,6 +129,12 @@ ENTRY_POINTS = {
     "optics.compute_neighbors_grid": lambda: optics.compute_neighbors_grid(
         np.zeros((4, 2), np.float32), 1.0, 2),
     "dbscan.dbscan_grid": lambda: dbscan.dbscan_grid(np.zeros((4, 2), np.float32)),
+    "optics.compute_neighbors": lambda: optics.compute_neighbors(
+        np.arange(8.0).reshape(4, 2), 2.0, 2),
+    "optics.compute_neighbors_cellpair": lambda: optics.compute_neighbors_cellpair(
+        np.arange(8.0).reshape(4, 2), 2.0, 2),
+    "optics.compute_reachability_dists": lambda: optics.compute_reachability_dists(
+        np.arange(8.0).reshape(4, 2), 2, 2.0),
 }
 
 
@@ -141,7 +151,11 @@ def test_default_call_without_a_card_raises(name):
 @pytest.mark.parametrize("fn", [pipeline.init_corner_state, fastcluster.init_state,
                                 aeclustering.init_state, tracker.init_state,
                                 sae.init_sae, fidelity.corner_agreement,
-                                optics.compute_neighbors_grid, dbscan.dbscan_grid])
+                                optics.compute_neighbors_grid, dbscan.dbscan_grid,
+                                optics.compute_neighbors, optics.compute_neighbors_2stage,
+                                optics.compute_neighbors_certified,
+                                optics.compute_neighbors_cellpair,
+                                optics.compute_reachability_dists, optics.neighbor_table])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -149,3 +163,95 @@ def test_entry_point_defaults_to_cuda(fn):
 @pytest.mark.parametrize("cls", [pipeline.ClusterFlowPipeline, pipeline.CornerTrackPipeline])
 def test_pipeline_defaults_to_cuda(cls):
     assert cls(config.DEFAULT).device == "cuda"
+
+
+# ------------------------------------------- OPTICS' host code and utils/
+
+def _reach(mod, pairs):
+    return [mod.ReachabilityDist(i, d) for i, d in pairs]
+
+
+REACH = [(0, -1.0), (4, 3.0), (2, 2.5), (7, 2.5), (1, 9.0), (3, 1.0), (6, 1.5),
+         (5, -1.0), (8, 4.0), (9, 0.5), (10, 0.75), (11, 8.0)]
+
+
+@pytest.mark.parametrize("points", [np.arange(20.0).reshape(10, 2) ** 1.5,
+                                    np.random.default_rng(1).uniform(0, 7, (40, 3)),
+                                    np.random.default_rng(2).uniform(0, 1000, (50, 200)),
+                                    np.zeros((1, 2)), np.ones((5, 2))])
+def test_epsilon_estimation_equals_the_jax_package(points):
+    assert optics.epsilon_estimation(points, 4) == joptics.epsilon_estimation(points, 4)
+
+
+def test_extraction_equals_the_jax_package(tmp_path):
+    ours, theirs = _reach(optics, REACH), _reach(joptics, REACH)
+    for t in (1.0, 2.5, 5.0):
+        assert optics.get_cluster_indices(ours, t) == joptics.get_cluster_indices(theirs, t)
+    pts = np.arange(24.0).reshape(12, 2)
+    for a, b in zip(optics.get_cluster_points(ours, 2.5, pts),
+                    joptics.get_cluster_points(theirs, 2.5, pts)):
+        np.testing.assert_array_equal(a, b)
+    for chi, min_pts in ((0.1, 2), (0.3, 3), (0.05, 4)):
+        flat = optics.get_chi_clusters_flat(ours, chi, min_pts)
+        assert flat == joptics.get_chi_clusters_flat(theirs, chi, min_pts)
+        assert optics.get_cluster_indices_chi(ours, flat) == \
+            joptics.get_cluster_indices_chi(theirs, flat)
+        trees = optics.get_chi_clusters(ours, chi, min_pts)
+        assert [t.flatten() for t in trees] == \
+            [t.flatten() for t in joptics.get_chi_clusters(theirs, chi, min_pts)]
+    for replace in (True, False):
+        optics.export_reachability_dists(ours, str(tmp_path / "a.csv"), replace)
+        joptics.export_reachability_dists(theirs, str(tmp_path / "b.csv"), replace)
+        assert (tmp_path / "a.csv").read_bytes() == (tmp_path / "b.csv").read_bytes()
+
+
+def _draw(mod):
+    img = mod.BGRImage(40, 30)
+    img.line(1, 1, 35, 20, (10, 20, 30))
+    img.line_antialiased(3, 28, 38, 2, (200, 0, 0))
+    img.circle(20, 15, 6, (0, 255, 0))
+    img.circle(8, 20, 3, (0, 0, 255), filled=True)
+    img.arrow(5, 5, 25, 12, (255, 0, 255))
+    img.text(2, 29, "12.5 px/f (G3)-", (0, 0, 0))
+    return img.append_rows(mod.BGRImage(40, 3, fill=(9, 9, 9)))
+
+
+def test_ppm_equals_the_jax_package(tmp_path):
+    ours, theirs = _draw(ppm), _draw(jppm)
+    np.testing.assert_array_equal(ours.px, theirs.px)
+    a = Path(ours.save(str(tmp_path / "a"))).read_bytes()
+    assert a == Path(theirs.save(str(tmp_path / "b"))).read_bytes()
+    np.testing.assert_array_equal(ppm.BGRImage.load(str(tmp_path / "a.ppm")).px, ours.px)
+
+
+def test_plots_equal_the_jax_package():
+    ours, theirs = _reach(optics, REACH), _reach(joptics, REACH)
+    pairs = [(plots.draw_reachability_plot(ours), jplots.draw_reachability_plot(theirs)),
+             (plots.draw_reachability_plot_with_chi_clusters(ours, 0.1, 2),
+              jplots.draw_reachability_plot_with_chi_clusters(theirs, 0.1, 2))]
+    rng = np.random.default_rng(4)
+    clusters = [rng.uniform(0, 60, (9, 2)), rng.uniform(20, 90, (5, 2))]
+    pairs.append((plots.draw_2d_clusters(clusters), jplots.draw_2d_clusters(clusters)))
+    for a, b in pairs:
+        np.testing.assert_array_equal(a.px, b.px)
+
+
+def test_frame_renders_equal_the_jax_package():
+    from types import SimpleNamespace as NS
+    rng = np.random.default_rng(5)
+    out = NS(reported=np.array([True, False, True]), centroid=rng.uniform(20, 80, (3, 2)),
+             flow=rng.normal(0, 4, (3, 2)), cid=np.array([3, 1, 12]))
+    mx, my = rng.integers(0, 100, 50), rng.integers(0, 80, 50)
+    labels = rng.integers(-1, 3, 50)
+    a = plots.render_cluster_frame(100, 80, out, (mx, my), labels)
+    b = jplots.render_cluster_frame(100, 80, out, (mx, my), labels)
+    np.testing.assert_array_equal(a.px, b.px)
+    groups = NS(exists=np.array([True, True, False]), centroid=rng.uniform(20, 80, (3, 2)),
+                avg_velocity=np.array([[2.0, 1.0], [0.01, 0.0], [1.0, 1.0]]),
+                radius=np.array([6.0, 1.0, 3.0]))
+    track = NS(groups=groups, track_active=np.array([True, True, False, True]),
+               track_pos=rng.uniform(5, 95, (4, 2)), track_group=np.array([0, -1, 1, 1]),
+               track_label=np.array([4, 7, 9, 11]), track_frames_since=np.array([0, 1, 0, 2]),
+               track_frame_count=np.array([5, 3, 9, 2]))
+    np.testing.assert_array_equal(plots.render_track_frame(100, 80, track).px,
+                                  jplots.render_track_frame(100, 80, track).px)
