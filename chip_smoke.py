@@ -58,6 +58,25 @@ Phases, one line each:
      against a float64 difference-form oracle; the native sweep equal to
      the Python loop on the card's table, and their xi clusters (chi 0.05)
      equal.
+ 13. the CLI (`cli_phase`): evflow_tpu_torch.run.main at DEFAULT on the card,
+     over the phase-3 stream written as a 1280x720 EVT3 file (524,288 events;
+     the native decoder reads it back equal to the numpy decoder and to the
+     stream, its rate printed), app C's cloud written as a PCD, and slice 3
+     as a CSV: cluster-flow, cluster-flow --exact, corner-track,
+     track-estimate --decimate 512, async-cluster --decimate 256 and
+     sampling on the stream; kmeans --n 2048; dbscan on the cloud (voxel
+     0.01, plane removal, eps 0.05, min_pts 10, PCD export); optics on slice
+     3 at eps 10. kmeans, dbscan and optics also run sharded, inside a real
+     NCCL group of one rank (its collectives counted), and must equal their
+     plain runs. Checks: each run's kernel launches, counted from 0 just
+     before it (the fastcluster kernels once per slice, the exact kernel
+     once per slice and once for async-cluster, the stencil); corners from
+     slice 1 on and clusters every slice; corner-track and cluster-flow
+     --exact split into two halves with --checkpoint / --resume print the
+     unbroken runs' slices; each subcommand's card run equals its CPU run
+     on a 4-slice prefix (optics on 1024 events of slice 3), as
+     tests/test_torch_cli.py compares them; temporal exits with its
+     message. Prints each run's wall ms and sampling's events/s.
 Every phase's line carries the card's name and power limit beside its
 times. Then one JSON line of per-kernel results and, last, the status line
 {"ok": true, "device": {...}}. A kernel's `launches` is its count over the
@@ -686,6 +705,245 @@ def optics_phase(dev, card, x, y, valid, cfg) -> None:
               f"{time.perf_counter() - t_case:.1f} s", flush=True)
 
 
+# phase 13: the CLI at DEFAULT on the card
+CLI_PREFIX_SLICES = 4         # the prefix each subcommand's CPU run repeats
+OPTICS_CPU_EVENTS = 1024      # optics' CPU run: this prefix of slice 3 (the CPU
+                              # cell-pair table's time grows fast with the density)
+PRINT_TOL = 0.01              # a last printed digit at a rounding boundary
+_NUMBER = r"(-?\d+(?:\.\d*)?(?:e[-+]?\d+)?)"
+
+
+def lines_match(got: str, want: str, rtol: float = 1e-5, atol: float = 1e-3) -> bool:
+    """Two CLI outputs line by line, parsed as the tier-1 tests parse them
+    (tests/test_torch_cli.py): the text between numbers equal, integers
+    equal, floats within PRINT_TOL + atol + rtol * |want|; `Total time`
+    lines left out."""
+    import re
+    keep = [[ln for ln in out.splitlines() if not ln.startswith("Total time")]
+            for out in (got, want)]
+    if len(keep[0]) != len(keep[1]):
+        return False
+    for a, b in zip(*keep):
+        pa, pb = re.split(_NUMBER, a), re.split(_NUMBER, b)
+        if len(pa) != len(pb) or pa[::2] != pb[::2]:
+            return False
+        for x, y in zip(pa[1::2], pb[1::2]):
+            if "." in x + y or "e" in x + y:
+                if abs(float(x) - float(y)) > PRINT_TOL + atol + rtol * abs(float(y)):
+                    return False
+            elif int(x) != int(y):
+                return False
+    return True
+
+
+def run_cli(argv) -> tuple:
+    """evflow_tpu_torch.run.main(argv): (its standard output, the kernel
+    launches of the run, counted from 0 just before it, its wall ms)."""
+    from io import StringIO
+    from evflow_tpu_torch import kernels, run
+    buf = StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run.main(list(argv))
+    torch.cuda.synchronize()
+    return buf.getvalue(), dict(kernels.LAUNCHES), (time.perf_counter() - t) * 1e3
+
+
+def slice_blocks(out: str) -> list:
+    """Per-slice report blocks of a CLI output, the slice index stripped
+    (a resumed run numbers its slices from 0)."""
+    blocks = []
+    for line in out.splitlines():
+        if line.startswith("slice "):
+            blocks.append([line.split(":", 1)[1]])
+        elif line.startswith("  ") and blocks:
+            blocks[-1].append(line)
+    return blocks
+
+
+def slice_field(out: str, name: str) -> list:
+    """The integer `name=` of each `slice i:` line."""
+    import re
+    return [int(re.search(rf"{name}=(\d+)", ln).group(1))
+            for ln in out.splitlines() if ln.startswith("slice ")]
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A real NCCL process group of one rank on card 0 (a HashStore), so
+    the sharded paths' collectives run; yields the count of collective
+    calls made within it."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    # the communicator is set up at the first collective: not in a timed run
+    dist.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
+    saved = dist.all_gather, dist.all_reduce
+    calls = {"all_gather": 0, "all_reduce": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    dist.all_gather, dist.all_reduce = (counted("all_gather", saved[0]),
+                                        counted("all_reduce", saved[1]))
+    try:
+        yield calls
+    finally:
+        dist.all_gather, dist.all_reduce = saved
+        dist.destroy_process_group()
+
+
+def cli_phase(card, stream, n) -> None:
+    """Phase 13 (see the module docstring), a line per part."""
+    import os
+    import re
+    import tempfile
+    from evflow_tpu_torch.io import evt3, save_csv
+    from evflow_tpu_torch.utils import pcd
+    n_slices = len(stream) // n
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # ---- the inputs. Single-event words: vector words pack the events
+        # of one (t, y, p) and merge exact duplicates, so such a file would
+        # not read back as the stream
+        raw = path("stream.raw")
+        evt3.save_evt3(stream, raw, vectorize=False)
+        read_s = []
+        for _ in range(3):
+            t = time.perf_counter()
+            got = evt3.load_evt3(raw)
+            read_s.append(time.perf_counter() - t)
+        ref = evt3.load_evt3(raw, use_native=False)
+        for f in ("x", "y", "t", "p"):
+            assert np.array_equal(getattr(got, f), getattr(ref, f)), f"native decode: {f}"
+            assert np.array_equal(getattr(got, f), getattr(stream, f)), f"decode: {f}"
+        rate = len(stream) / float(np.median(read_s))
+        half = n_slices // 2 * n
+        for name, part in (("head.raw", stream[:half]), ("tail.raw", stream[half:]),
+                           ("prefix.raw", stream[:CLI_PREFIX_SLICES * n])):
+            evt3.save_evt3(part, path(name), vectorize=False)
+        save_csv(stream[3 * n:4 * n], path("slice3.csv"))
+        save_csv(stream[3 * n:3 * n + OPTICS_CPU_EVENTS], path("slice3_prefix.csv"))
+        pcd.save_pcd(path("cloud.pcd"), pointcloud_scene(), binary=True)
+        print(f"CLI inputs: {len(stream)} events as a 1280x720 EVT3 file of "
+              f"{os.path.getsize(raw)} bytes, read back by the native decoder equal to "
+              f"the numpy decoder and to the stream at {rate:.0f} events/s (median of 3 "
+              f"reads); app C's {PC_POINTS}-point cloud as a binary PCD", flush=True)
+
+        def subcommands(stream_file, optics_csv):
+            """argv of each run on these inputs; the dbscan runs export."""
+            pc = ["dbscan", "--input", path("cloud.pcd"), "--voxel", "0.01",
+                  "--remove-plane", "--eps", "0.05", "--min-pts", "10"]
+            optics = ["optics", "--input", optics_csv, "--eps", "10"]
+            return {
+                "cluster-flow": ["cluster-flow", "--input", stream_file],
+                "cluster-flow --exact": ["cluster-flow", "--input", stream_file, "--exact"],
+                "corner-track": ["corner-track", "--input", stream_file],
+                "track-estimate": ["track-estimate", "--input", stream_file,
+                                   "--decimate", "512"],
+                "async-cluster": ["async-cluster", "--input", stream_file, "--decimate", "256"],
+                "sampling": ["sampling", "--input", stream_file],
+                "kmeans": ["kmeans", "--n", "2048"],
+                "kmeans --sharded": ["kmeans", "--n", "2048", "--sharded"],
+                "dbscan": pc + ["--export", path("plain.pcd")],
+                "dbscan --sharded": pc + ["--sharded", "--export", path("sharded.pcd")],
+                "optics": optics,
+                "optics --method sharded": optics + ["--method", "sharded"],
+            }
+
+        cuda = ["--device", "cuda"]
+        runs = subcommands(raw, path("slice3.csv"))
+        outs, launches, ms = {}, {}, {}
+        with nccl_world_of_one() as collectives:
+            for name, argv in runs.items():
+                outs[name], launches[name], ms[name] = run_cli(argv + cuda)
+
+        # ---- the kernels each run launched, and what it reported
+        for name in ("cluster-flow", "track-estimate"):
+            k = sum(ln.startswith("slice ") for ln in outs[name].splitlines())
+            assert k > 0 and launches[name]["assign_manhattan"] == k \
+                == launches[name]["cluster_stats"], (name, k, launches[name])
+        for name in ("cluster-flow", "cluster-flow --exact"):
+            reported = slice_field(outs[name], "clusters")
+            assert len(reported) == n_slices and min(reported) > 0, (name, reported)
+        assert launches["cluster-flow --exact"]["aeclustering_exact"] == n_slices, \
+            launches["cluster-flow --exact"]
+        assert launches["async-cluster"]["aeclustering_exact"] == 1, launches["async-cluster"]
+        assert outs["async-cluster"].startswith(f"events={len(stream) // 256} clusters=")
+        corners = slice_field(outs["corner-track"], "corners")
+        assert len(corners) == n_slices and corners[0] == 0 and min(corners[1:]) > 0, corners
+        assert launches["corner-track"]["efast_stencil"] >= n_slices - 1, launches["corner-track"]
+        assert len(slice_field(outs["sampling"], "unique")) == n_slices
+        events_s = float(re.search(r"\((\d+) events/s\)", outs["sampling"]).group(1))
+
+        # ---- the sharded runs (one rank of a real NCCL group) equal the plain
+        assert collectives["all_gather"] > 0 and collectives["all_reduce"] > 0, collectives
+        assert lines_match(outs["kmeans --sharded"], outs["kmeans"]), \
+            (outs["kmeans --sharded"], outs["kmeans"])
+        assert outs["dbscan --sharded"] == outs["dbscan"], (outs["dbscan --sharded"],
+                                                            outs["dbscan"])
+        with open(path("plain.pcd"), "rb") as a, open(path("sharded.pcd"), "rb") as b:
+            assert a.read() == b.read(), "dbscan --sharded exported other clusters"
+        assert outs["optics --method sharded"] == outs["optics"]
+        # the CLI voxelizes at the default 2^16 buckets, where colliding
+        # voxels can bridge the blobs (phase 11)
+        n_dbscan = int(re.search(r"clusters=(\d+)", outs["dbscan"]).group(1))
+        assert n_dbscan > 0, outs["dbscan"]
+        print(f"CLI on {card} at DEFAULT: launches " + "; ".join(
+            f"{name} {({k: v for k, v in launches[name].items() if v})}" for name in runs)
+            + f"; corners/slice {corners}; kmeans, dbscan and optics sharded over one NCCL "
+            f"rank ({collectives}) equal to their plain runs; dbscan finds {n_dbscan} "
+            f"clusters: {outs['dbscan'].strip()!r}", flush=True)
+
+        # ---- split resumes: the first half, a checkpoint, the second half
+        for name in ("corner-track", "cluster-flow --exact"):
+            argv = runs[name][:1] + runs[name][3:]    # without --input
+            ck = path(f"{argv[0]}.npz")
+            head = run_cli(argv + ["--input", path("head.raw"), "--checkpoint", ck] + cuda)[0]
+            assert "checkpoint saved" in head
+            tail = run_cli(argv + ["--input", path("tail.raw"), "--resume", ck] + cuda)[0]
+            assert slice_blocks(head) + slice_blocks(tail) == slice_blocks(outs[name]), \
+                f"{name}: the split resume differs from the unbroken run"
+
+        # ---- each subcommand's card run against its CPU run, on the prefix
+        cpu_ms = {}
+        for name, argv in subcommands(path("prefix.raw"), path("slice3_prefix.csv")).items():
+            if "sharded" in name:
+                continue          # equal to the plain run, above
+            if name == "dbscan":
+                argv = argv[:-2]  # no export
+            got = run_cli(argv + cuda)[0]
+            t = time.perf_counter()
+            want = run_cli(argv + ["--device", "cpu"])[0]
+            cpu_ms[name] = round((time.perf_counter() - t) * 1e3)
+            assert lines_match(got, want), (name, got, want)
+
+        # ---- temporal waits for its port
+        try:
+            run_cli(["temporal", "--input", raw] + cuda)
+            raise AssertionError("temporal ran")
+        except SystemExit as e:
+            assert e.code not in (0, None) and "not ported" in str(e.code), e.code
+        print(f"CLI checks on {card}: corner-track and cluster-flow --exact split into "
+              f"{n_slices // 2} + {n_slices // 2} slices with --checkpoint / --resume print "
+              f"the unbroken runs' slices; each subcommand's card run equals its CPU run on "
+              f"the {CLI_PREFIX_SLICES}-slice prefix (optics on {OPTICS_CPU_EVENTS} events of "
+              f"slice 3; the CPU runs' ms {cpu_ms}); temporal exits with its message",
+              flush=True)
+    print(f"CLI wall ms on {card}: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; sampling {events_s:.0f} events/s (dedup_batched over {n_slices} slices, its "
+          f"own timer); EVT3 native decode {rate:.0f} events/s; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1012,6 +1270,9 @@ def main() -> int:
     print(dbscan_phase(dev, card, xs[3], ys[3], vs[3], cfg), flush=True)
     print(pointcloud_phase(dev, card), flush=True)
     optics_phase(dev, card, xs[3], ys[3], vs[3], cfg)
+
+    # ---- 13. the CLI
+    cli_phase(card, stream, n)
 
     sources = {"efast_stencil": ("evflow_tpu_torch/csrc/efast_stencil.cu",
                                  "evflow_tpu/ops/efast.py:397"),

@@ -11,8 +11,9 @@ The port imports nothing of the JAX package: it keeps its own copies of the
 framework-free parts, `config` (plain dataclasses) and `io` (numpy), which
 tests/test_torch_isolation.py holds equal to the JAX package's. Its entry
 points (`init_state`, `init_corner_state`, the pipelines, `init_sae`,
-`fidelity.corner_agreement`) run on the card (`device="cuda"`) unless the
-caller passes `device="cpu"`; with no card a default call raises.
+`fidelity.corner_agreement`, the CLI `python -m evflow_tpu_torch.run`) run
+on the card (`device="cuda"`) unless the caller passes `device="cpu"`;
+with no card a default call raises.
 """
 
 import torch

@@ -11,7 +11,7 @@ Supported formats:
   - .npz with keys x,y,t,p
   - Metavision `.raw` recordings, all three public generations (the
     reference's actual camera input): '%'-header files dispatch by header to
-    io/evt3.py (EVT3) or io/evt2.py (EVT2/EVT2.1)
+    io/evt3.py (EVT3 — native + numpy decoders) or io/evt2.py (EVT2/EVT2.1)
   - raw binary little-endian int32 quads (our own compact format)
 """
 

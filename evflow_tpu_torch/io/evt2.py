@@ -26,8 +26,9 @@ nibble is a known code, in the swapped one it is noise (`_detect_swapped`).
 
 Decoding is the same forward-fill formulation as EVT3: per-word time state is
 a forward fill of the last TIME_HIGH; everything else is carried by the event
-word itself, so both decoders are pure vectorized numpy. (The JAX package
-also carries native C++ decoders; this copy keeps the numpy ones only.)
+word itself, so both decoders are pure vectorized numpy, with native C++
+counterparts for ingest-rate decoding (native/evio.cpp:evio_decode_evt2/
+evt21; cross-checked in tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ def _detect_swapped(w: np.ndarray, sample: int = 4096) -> bool:
     return th_score(sw) > th_score(ws)
 
 
-def load_evt2(path: str) -> EventStream:
+def load_evt2(path: str, use_native: bool = True) -> EventStream:
     """Read a Metavision EVT2 or EVT2.1 `.raw` recording into an EventStream."""
     from .evt3 import split_header
     with open(path, "rb") as f:
@@ -139,8 +140,17 @@ def load_evt2(path: str) -> EventStream:
     fmt = _format_of(fields)
     payload = blob[off:]
     if fmt == "EVT2":
+        if use_native:
+            from .. import native
+            return EventStream(*native.decode_evt2(payload))
         return EventStream(*decode_evt2_numpy(payload))
     if fmt == "EVT21":
+        if use_native:
+            from .. import native
+            w = np.frombuffer(payload[:len(payload) - len(payload) % 8],
+                              dtype="<u8")
+            return EventStream(*native.decode_evt21(
+                payload, swapped_halves=_detect_swapped(w)))
         return EventStream(*decode_evt21_numpy(payload))
     raise ValueError(f"{path}: not an EVT2/EVT2.1 recording "
                      f"(header format={fields.get('format', '')!r})")

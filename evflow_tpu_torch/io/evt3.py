@@ -19,8 +19,9 @@ Decoding is sequential-stateful in spirit (y / time / vector base persist
 across words) but fully vectorizable: every per-word state is a forward fill
 of the last setter word, and the vector base offset within a VECT_BASE_X run
 is an exclusive prefix sum of the 12/8 increments. The numpy decoder below
-does exactly that. (The JAX package also carries a native C++ decoder; this
-copy keeps the numpy one only.)
+does exactly that; the native path (evflow_tpu_torch/native/evio.cpp:
+evio_decode_evt3) is a plain scalar loop for ingest-rate decoding. Both are
+cross-checked in tests/test_torch_native.py.
 """
 
 from __future__ import annotations
@@ -153,7 +154,7 @@ def decode_evt3_numpy(payload: bytes) -> Tuple[np.ndarray, np.ndarray,
     return x[order], y[order], t[order], p[order]
 
 
-def load_evt3(path: str) -> EventStream:
+def load_evt3(path: str, use_native: bool = True) -> EventStream:
     """Read a Metavision EVT3 `.raw` recording into an EventStream."""
     with open(path, "rb") as f:
         blob = f.read()
@@ -164,7 +165,11 @@ def load_evt3(path: str) -> EventStream:
             f"{path}: not an EVT3 recording (header format={fmt!r}); "
             "for EVT2/EVT2.1 use io/evt2.py (events.load dispatches all "
             "three generations by header)")
-    return EventStream(*decode_evt3_numpy(blob[off:]))
+    payload = blob[off:]
+    if use_native:
+        from .. import native
+        return EventStream(*native.decode_evt3(payload))
+    return EventStream(*decode_evt3_numpy(payload))
 
 
 def save_evt3(stream: EventStream, path: str, width: int = 1280,

@@ -42,14 +42,16 @@ class DBSCANResult(NamedTuple):
     iterations: torch.Tensor    # int32 () propagation rounds used
 
 
-def _neighbor_min_label(points, labels, core, eps2, block):
-    """nmin[i] = the lowest label of a core point within eps of i, or _BIG,
-    one (block, N) panel at a time."""
+def _neighbor_min_label(rows, points, labels, core, eps2, block):
+    """nmin[i] = the lowest label of a core point of `points` within eps of
+    rows[i], or _BIG, one (block, N) panel at a time. Each row's result
+    depends on that row alone (parallel/batch.py takes row blocks)."""
     lab_src = torch.where(core, labels, _BIG)[None, :]
-    out = [torch.where(pairwise_sqdist(points[i:i + block], points) <= eps2,
+    out = [torch.where(pairwise_sqdist(rows[i:i + block], points) <= eps2,
                        lab_src, _BIG).amin(1)
-           for i in range(0, points.shape[0], block)]
-    return torch.cat(out) if out else labels
+           for i in range(0, rows.shape[0], block)]
+    return torch.cat(out) if out else torch.full((0,), _BIG, dtype=labels.dtype,
+                                                  device=labels.device)
 
 
 def _propagate(labels, core, nmin_of, max_iters):
@@ -106,7 +108,7 @@ def dbscan(points: torch.Tensor, valid: torch.Tensor | None = None,
     labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), _BIG)
 
     def nmin_of(lab):
-        return _neighbor_min_label(pts, lab, core, eps2, block)
+        return _neighbor_min_label(pts, pts, lab, core, eps2, block)
 
     labels, it = _propagate(labels, core, nmin_of, max_iters)
     labels = torch.where(core, labels, torch.where(valid, nmin_of(labels), _BIG))

@@ -10,7 +10,8 @@ sweep with a priority queue ordered by (reach_dist, point_index)
   - neighbor tables on `device` ("cuda" by default): the dense (block, N)
     panels (`compute_neighbors`), the grid of eps-wide cells
     (`compute_neighbors_grid`) and its gather-free cell-pair form
-    (`compute_neighbors_cellpair`);
+    (`compute_neighbors_cellpair`); method "sharded" splits the dense
+    table's rows over a process group's ranks (parallel/batch.py);
   - core distance: the distance to the min_pts-th element of the inclusive
     eps-neighborhood (hpp:286-299);
   - the sweep: the host C++ of `native/optics_sweep.cpp`, or the Python
@@ -99,13 +100,21 @@ def _dense_table(pts: torch.Tensor, eps: torch.Tensor, k: int, block: int, min_p
     |a|^2 + |b|^2 - 2ab takes its cross term from a matmul, whose bits no
     elementwise form reproduces, and the difference form is the more
     accurate of the two (JAX's certified gate and its two-stage refine)."""
-    n, d = pts.shape
+    return _dense_rows(pts, pts, eps, k, block, min_pts)
+
+
+def _dense_rows(rows_all: torch.Tensor, pts: torch.Tensor, eps: torch.Tensor, k: int,
+                block: int, min_pts: int):
+    """`_dense_table`'s rows for the query points `rows_all` against all of
+    `pts`: each row's entries depend on that row alone, so a row block
+    (parallel/batch.py) gets the bits of the whole table's rows."""
+    n, d = rows_all.shape
     dev = pts.device
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     dist = torch.empty((n, k), dtype=torch.float32, device=dev)
     cnt = torch.empty(n, dtype=torch.int32, device=dev)
     for i in range(0, n, block):
-        rows = pts[i:i + block]
+        rows = rows_all[i:i + block]
         d2 = None
         for j in range(d):
             dj = rows[:, j, None] - pts[None, :, j]
@@ -505,8 +514,12 @@ def neighbor_table(points: np.ndarray, min_pts: int, epsilon: float,
     def build(max_neighbors):
         table = None
         if method == "sharded":
-            raise NotImplementedError(
-                "method='sharded' needs parallel/, which the port does not have yet")
+            # the dense table's rows split over the ranks of the default
+            # process group (parallel/batch.py; one rank without one)
+            from ..parallel.batch import compute_neighbors_sharded
+            return compute_neighbors_sharded(points, epsilon, min_pts,
+                                             max_neighbors=max_neighbors, block=block,
+                                             device=device)
         if method == "cellpair" or (method == "auto" and points.shape[1] <= 2):
             table = compute_neighbors_cellpair(points, epsilon, min_pts,
                                                max_neighbors=max_neighbors, device=device)
@@ -642,8 +655,9 @@ def compute_reachability_dists(points: np.ndarray, min_pts: int,
     (tiled O(N^2) panels), "dense2" and "certified" (JAX's TPU work-arounds,
     the dense table here), "auto" (cellpair at d <= 2, else grid, else
     dense, which JAX replaces by certified from 32768 points, each falling
-    through where it declines), and "sharded", which raises
-    NotImplementedError until parallel/ is ported. "cellpair" and
+    through where it declines), and "sharded" (the dense table with its
+    rows split over the process group's ranks, parallel/batch.py; one rank
+    when torch.distributed is not initialized). "cellpair" and
     "grid" raise ValueError where they decline. full_window lets the grid
     keep its whole masked windows (see compute_neighbors_grid).
 

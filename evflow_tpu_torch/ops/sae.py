@@ -52,3 +52,14 @@ def update_sae(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 def last_time(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Latest valid timestamp of the slice."""
     return torch.where(valid, t, _lowest(t.dtype)).amax()
+
+
+def render_time_surface(sae: torch.Tensor, last_t, delta_ts: int = 10_000) -> torch.Tensor:
+    """Grayscale render — generate_img_time_surface semantics: pixels with
+    t in (last_t - delta_ts, last_t] ramp 0..255, older pixels are 0. fp32
+    throughout, the division IEEE-rounded as in JAX, then uint8."""
+    last_t = torch.as_tensor(last_t, device=sae.device)
+    age = last_t.to(torch.float32) - sae.to(torch.float32)
+    val = 255.0 * (1.0 - age / float(delta_ts))
+    val = torch.where((sae > 0) & (age < delta_ts), val, 0.0)
+    return torch.clamp(val, 0.0, 255.0).to(torch.uint8)

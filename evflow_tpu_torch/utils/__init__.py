@@ -1,2 +1,3 @@
-"""Host utilities of the port (copies of evflow_tpu/utils): PPM images and
-the diagnostic plots."""
+"""Host utilities of the port: PPM images, the diagnostic plots, PCD files
+and the evaluation metrics (copies of evflow_tpu/utils), and its own
+checkpoint (the JAX package's npz format) and profiling helpers."""

@@ -561,3 +561,44 @@ def test_optics_dense_ties_on_card(cuda):
         assert torch.equal(got.idx.cpu(), ref.idx)
         tied = np.nonzero(np.hypot(*pts.T) == 5.0)[0]
         assert got.idx[0].tolist() == [0] + sorted(tied.tolist())[:7]
+
+
+# ---------------------------------------------------------------- the CLI
+
+def test_cli_async_cluster_on_card_matches_cpu(cuda, tmp_path, capsys):
+    """app A through the CLI: a decimated stream of 32,768 events as one
+    slice, one launch of the exact kernel (its lane compaction and ring
+    staging at N in the tens of thousands), the printed clusters equal to
+    the CPU run's (the exact engine is bit-equal)."""
+    from evflow_tpu_torch.io import save_csv
+    from evflow_tpu_torch.run import main
+    stream = synthetic.moving_blob_stream(
+        num_slices=8, events_per_slice=16384,
+        blob_centers=((200.0, 200.0), (900.0, 500.0), (600.0, 150.0)),
+        velocities=((30.0, 10.0), (-20.0, 15.0), (5.0, -12.0)), sigma=12.0, seed=42)
+    path = str(tmp_path / "s.csv")
+    save_csv(stream, path)
+    argv = ["async-cluster", "--input", path, "--decimate", "4"]
+    kernels.reset_launches()
+    main(argv)
+    got = capsys.readouterr().out
+    assert kernels.LAUNCHES["aeclustering_exact"] == 1
+    main(argv + ["--device", "cpu"])
+    want = capsys.readouterr().out
+    assert got == want
+    assert got.startswith("events=32768 clusters=") and got.count("cid=") > 0
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_dedup_batched_on_card_matches_cpu(cuda, exact):
+    from evflow_tpu_torch.config import DedupConfig
+    from evflow_tpu_torch.ops import hash_dedup
+    rng = np.random.default_rng(21)
+    s, n = 8, 16384
+    x = torch.as_tensor(rng.integers(-2, 1283, (s, n)).astype(np.int32))
+    y = torch.as_tensor(rng.integers(-2, 723, (s, n)).astype(np.int32))
+    v = torch.as_tensor(rng.random((s, n)) < 0.9)
+    cfg = DedupConfig(exact=exact)
+    got = hash_dedup.dedup_batched(x.to(cuda), y.to(cuda), v.to(cuda), cfg)
+    want = hash_dedup.dedup_batched(x, y, v, cfg)
+    interop.assert_trees_close(got, want, rtol=0, atol=0)

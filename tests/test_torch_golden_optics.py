@@ -4,12 +4,15 @@ committed event fixture (320 events) at the reference driver's parameters
 byte against the committed golden files. Pixel coordinates are integers,
 so every distance term is exact in fp32 and the output must be identical.
 
-The golden's other half, the CLI's report, waits for the port's CLI.
+The golden's other half: the port's CLI (`optics --device cpu`) prints the
+golden report, for the default method and for "sharded" (the dense table,
+one rank outside a process group).
 """
 
 import os
 
 import numpy as np
+import pytest
 
 from evflow_tpu_torch.io import load_csv
 from evflow_tpu_torch.models import optics
@@ -56,3 +59,12 @@ def test_optics_end_to_end_matches_golden(tmp_path):
             assert _ppm_bytes(reach_img, tmp_path, "reach") == f.read()
         with open(GOLDEN_2D, "rb") as f:
             assert _ppm_bytes(img2d, tmp_path, "clusters2d") == f.read()
+
+
+@pytest.mark.parametrize("method", ["auto", "sharded"])
+def test_cli_optics_report_matches_golden(capsys, method):
+    from evflow_tpu_torch.run import main
+    main(["optics", "--input", FIXTURE, "--eps", str(EPS), "--min-pts", str(MIN_PTS),
+          "--threshold", str(THRESHOLD), "--method", method, "--device", "cpu"])
+    with open(GOLDEN) as f:
+        assert capsys.readouterr().out == f.read()

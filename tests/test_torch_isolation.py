@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of the JAX package, its own
-copies of `config`, `io`, OPTICS' host code and `utils` stay equal to the
-JAX package's, and its entry points run on the card unless the caller asks
-for the CPU."""
+copies of `config`, `io` (with its native decoders), OPTICS' host code and
+`utils` (ppm, plots, pcd, metrics) stay equal to the JAX package's, and its
+entry points (the CLI's `--device` among them) run on the card unless the
+caller asks for the CPU."""
 
 import ast
 import dataclasses
@@ -19,12 +20,13 @@ from evflow_tpu import config as jconfig
 from evflow_tpu import io as jio
 from evflow_tpu.io import evt2 as jevt2, evt3 as jevt3
 from evflow_tpu.models import optics as joptics
-from evflow_tpu.utils import plots as jplots, ppm as jppm
-from evflow_tpu_torch import config, fidelity, io
+from evflow_tpu.utils import metrics as jmetrics, pcd as jpcd, plots as jplots, ppm as jppm
+from evflow_tpu_torch import config, fidelity, io, run
 from evflow_tpu_torch.io import evt2, evt3
 from evflow_tpu_torch.models import aeclustering, dbscan, fastcluster, optics, pipeline, tracker
 from evflow_tpu_torch.ops import sae
-from evflow_tpu_torch.utils import plots, ppm
+from evflow_tpu_torch.parallel import batch
+from evflow_tpu_torch.utils import metrics, pcd, plots, ppm
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "evflow_tpu_torch").rglob("*.py"))
@@ -103,14 +105,24 @@ def test_synthetic_stream_and_slicing_equal_the_jax_package():
 
 @pytest.mark.parametrize("fmt", ["evt3", "evt2", "evt21"])
 def test_raw_readers_equal_the_jax_package(fmt, tmp_path):
-    """The numpy decoders of the port's copy read what the JAX package
-    writes, as the JAX package's reader does."""
+    """The port's copy reads what the JAX package writes, as the JAX
+    package's reader does, through the native decoders (the default) and
+    through the numpy ones."""
     s = jio.synthetic.moving_blob_stream(num_slices=2, events_per_slice=4096, seed=3)
     path = str(tmp_path / f"s.{fmt}.raw")
     {"evt3": jevt3.save_evt3, "evt2": jevt2.save_evt2, "evt21": jevt2.save_evt21}[fmt](s, path)
     _eq_stream(io.load(path), jio.load(path))
-    load = evt3.load_evt3 if fmt == "evt3" else evt2.load_evt2
-    _eq_stream(load(path), s)
+    load, jload = ((evt3.load_evt3, jevt3.load_evt3) if fmt == "evt3"
+                   else (evt2.load_evt2, jevt2.load_evt2))
+    for use_native in (True, False):
+        _eq_stream(load(path, use_native=use_native), s)
+        _eq_stream(load(path, use_native=use_native), jload(path, use_native=use_native))
+
+
+@pytest.mark.parametrize("name", ["load_evt3", "load_evt2"])
+def test_raw_loader_signatures_equal_the_jax_package(name):
+    mod, jmod = (evt3, jevt3) if name == "load_evt3" else (evt2, jevt2)
+    assert inspect.signature(getattr(mod, name)) == inspect.signature(getattr(jmod, name))
 
 
 ENTRY_POINTS = {
@@ -135,6 +147,12 @@ ENTRY_POINTS = {
         np.arange(8.0).reshape(4, 2), 2.0, 2),
     "optics.compute_reachability_dists": lambda: optics.compute_reachability_dists(
         np.arange(8.0).reshape(4, 2), 2, 2.0),
+    "batch.compute_neighbors_sharded": lambda: batch.compute_neighbors_sharded(
+        np.arange(8.0).reshape(4, 2), 2.0, 2),
+    "batch.dbscan_sharded": lambda: batch.dbscan_sharded(np.zeros((4, 2), np.float32)),
+    "batch.kmeans_sharded": lambda: batch.kmeans_sharded(
+        np.zeros((4, 2), np.float32), np.zeros((2, 2), np.float32)),
+    "run.main": lambda: run.main(["kmeans", "--n", "16"]),
 }
 
 
@@ -144,7 +162,7 @@ def test_default_call_without_a_card_raises(name):
     raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default call is valid here")
-    with pytest.raises((RuntimeError, AssertionError)):
+    with pytest.raises((RuntimeError, AssertionError, SystemExit)):
         ENTRY_POINTS[name]()
 
 
@@ -155,9 +173,17 @@ def test_default_call_without_a_card_raises(name):
                                 optics.compute_neighbors, optics.compute_neighbors_2stage,
                                 optics.compute_neighbors_certified,
                                 optics.compute_neighbors_cellpair,
-                                optics.compute_reachability_dists, optics.neighbor_table])
+                                optics.compute_reachability_dists, optics.neighbor_table,
+                                batch.compute_neighbors_sharded, batch.dbscan_sharded,
+                                batch.kmeans_sharded])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("argv", [["kmeans"], ["optics", "--input", "x.csv"],
+                                  ["cluster-flow", "--input", "x.csv"]])
+def test_cli_device_defaults_to_cuda(argv):
+    assert run.parser().parse_args(argv).device == "cuda"
 
 
 @pytest.mark.parametrize("cls", [pipeline.ClusterFlowPipeline, pipeline.CornerTrackPipeline])
@@ -255,3 +281,33 @@ def test_frame_renders_equal_the_jax_package():
                track_frame_count=np.array([5, 3, 9, 2]))
     np.testing.assert_array_equal(plots.render_track_frame(100, 80, track).px,
                                   jplots.render_track_frame(100, 80, track).px)
+
+
+def test_pcd_equals_the_jax_package(tmp_path):
+    rng = np.random.default_rng(6)
+    pts = rng.normal(0, 1, (40, 3)).astype(np.float32)
+    inten = rng.integers(0, 8, 40).astype(np.float32)
+    for binary in (False, True):
+        for i in (None, inten):
+            a, b = str(tmp_path / "a.pcd"), str(tmp_path / "b.pcd")
+            pcd.save_pcd(a, pts, i, binary=binary)
+            jpcd.save_pcd(b, pts, i, binary=binary)
+            assert Path(a).read_bytes() == Path(b).read_bytes()
+            for got, want in zip(pcd.load_pcd(a), jpcd.load_pcd(a)):
+                np.testing.assert_array_equal(got, want)
+
+
+def test_metrics_equal_the_jax_package():
+    rng = np.random.default_rng(7)
+    ta = {k: [tuple(p) for p in rng.normal(0, 5, (n, 2))] for k, n in ((1, 5), (2, 3), (4, 6))}
+    tb = {k: [tuple(p) for p in rng.normal(0, 5, (n, 2))] for k, n in ((1, 4), (3, 2), (4, 6))}
+    for a, b in ((ta, tb), (tb, ta), ({}, tb), (ta, {})):
+        assert metrics.ate(a, b) == jmetrics.ate(a, b)
+        assert metrics.trajectory_coverage(a, b) == jmetrics.trajectory_coverage(a, b)
+    la, lb = rng.integers(-1, 4, 60), rng.integers(-1, 4, 60)
+    assert metrics.cluster_set_agreement(la, lb) == jmetrics.cluster_set_agreement(la, lb)
+    flow, gt = rng.normal(0, 3, (6, 2)), rng.normal(0, 3, (6, 2))
+    assert metrics.flow_endpoint_error(flow, gt) == jmetrics.flow_endpoint_error(flow, gt)
+    cents, gc, gv = rng.uniform(0, 100, (6, 2)), rng.uniform(0, 100, (3, 2)), rng.normal(0, 3, (3, 2))
+    assert metrics.greedy_match_flow(flow, cents, gc, gv) == \
+        jmetrics.greedy_match_flow(flow, cents, gc, gv)

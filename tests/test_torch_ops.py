@@ -1,5 +1,6 @@
 """Parity of the PyTorch port's per-slice operators with the JAX package:
-dedup, SAE, eFAST (per-candidate, dense masks, the dense detector) and NMS.
+dedup (one slice, batched and sorted), SAE and its render, eFAST
+(per-candidate, dense masks, the dense detector) and NMS.
 Inputs are made with numpy from a seed and go through both packages; every
 result here is integer or boolean and must be bit-equal. The dense masks
 are also held against the JAX package's Pallas stencils in interpret mode
@@ -82,6 +83,56 @@ def test_dedup_compaction_matches_jax_and_oracle():
     k = int(got.unique_count)
     assert list(zip(got.unique_x[:k].tolist(), got.unique_y[:k].tolist())) == uniques
     assert int(got.repeated_count) == repeated
+
+
+def _same_result(got, want):
+    for name, g, w_ in zip(want._fields, got, want):
+        assert g.numpy().dtype == np.asarray(w_).dtype, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_), err_msg=name)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_dedup_batched_matches_jax_vmap(exact):
+    """One batched sort over (S, N) against JAX's vmap of dedup, and each
+    row against the port's own dedup."""
+    rng = np.random.default_rng(11)
+    cfg = DedupConfig(exact=exact, num_buckets=512)
+    rows = [_events(rng, 1536) for _ in range(5)]
+    x, y, v = (np.stack(a) for a in zip(*rows))
+    v[2] = False                                     # an empty slice
+    got = hash_dedup.dedup_batched(_t(x), _t(y), _t(v), cfg, SENSOR)
+    _same_result(got, jdedup.dedup_batched(jnp.asarray(x), jnp.asarray(y),
+                                           jnp.asarray(v), cfg, SENSOR))
+    for s in range(5):
+        one = hash_dedup.dedup(_t(x[s]), _t(y[s]), _t(v[s]), cfg, SENSOR)
+        for g, w_ in zip(one, got):
+            assert torch.equal(g, w_[s])
+    assert int(got.unique_count[2]) == 0 and bool((got.repeated_count > 0).any())
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_dedup_sorted_matches_jax(exact):
+    rng = np.random.default_rng(12)
+    cfg = DedupConfig(exact=exact, num_buckets=512)
+    x, y, v = _events(rng, 2048)
+    got = hash_dedup.dedup_sorted(_t(x), _t(y), _t(v), cfg, SENSOR)
+    _same_result(got, jdedup.dedup_sorted(jnp.asarray(x), jnp.asarray(y), jnp.asarray(v),
+                                          cfg, SENSOR))
+    assert int(got.repeated_count) > 0
+
+
+@pytest.mark.parametrize("delta_ts", [10_000, 777, 3])
+def test_render_time_surface_matches_jax(delta_ts):
+    """fp32, the division IEEE-rounded, then uint8: bit-equal."""
+    rng = np.random.default_rng(13)
+    surface = rng.integers(0, 50_000, (H, W)).astype(np.int32)
+    surface[rng.random((H, W)) < 0.3] = 0
+    for last in (50_000, 43_210, 7):
+        last_t = np.int32(last)
+        got = sae.render_time_surface(_t(surface), torch.tensor(last_t), delta_ts)
+        want = jsae.render_time_surface(jnp.asarray(surface), jnp.asarray(last_t), delta_ts)
+        assert got.dtype == torch.uint8
+        _eq(got, want)
 
 
 def test_update_sae_matches_jax():

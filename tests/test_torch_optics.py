@@ -661,8 +661,15 @@ def test_sweep_native_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_sharded_raises_until_parallel_is_ported():
-    with pytest.raises(NotImplementedError):
-        P.compute_reachability_dists(THREE_GROUPS, 2, 10, method="sharded", device="cpu")
+    """method="sharded" runs now that parallel/ is ported: outside a
+    process group it is one rank, and its table and sweep equal the dense
+    method's."""
+    dense = P.neighbor_table(THREE_GROUPS, 2, 10, method="dense", device="cpu")
+    sharded = P.neighbor_table(THREE_GROUPS, 2, 10, method="sharded", device="cpu")
+    for a, b in zip(sharded, dense):
+        assert torch.equal(a, b)
+    assert P.compute_reachability_dists(THREE_GROUPS, 2, 10, method="sharded", device="cpu") \
+        == P.compute_reachability_dists(THREE_GROUPS, 2, 10, method="dense", device="cpu")
 
 
 def test_every_public_name_of_the_jax_module():
