@@ -75,8 +75,28 @@ Phases, one line each:
      --exact split into two halves with --checkpoint / --resume print the
      unbroken runs' slices; each subcommand's card run equals its CPU run
      on a 4-slice prefix (optics on 1024 events of slice 3), as
-     tests/test_torch_cli.py compares them; temporal exits with its
-     message. Prints each run's wall ms and sampling's events/s.
+     tests/test_torch_cli.py compares them. Prints each run's wall ms and
+     sampling's events/s.
+ 14. the spatio-temporal layer (`temporal_phase`) on the same 32 slices:
+     (a) inside a NCCL group of one rank, run_temporal on a 1 x 1 grid
+     (warm-up 0) equal to cluster_flow_scan (cluster streams), then the
+     CLI's `temporal --windows 1 --tiles 1` and `temporal --exact --windows
+     1`, their launches counted; (b) four Gloo ranks spawned on card 0
+     (Gloo stages the card's tensors through the host; NCCL will not put
+     two ranks on one card), run_temporal on a (2 windows x 2 tiles) grid,
+     warm-up 8: every rank's output bit-equal, each window's cluster streams
+     equal to update_slice over its slices in tile-major order from a fresh
+     state, each slice's num_filtered equal to filter_corners on the
+     gathered tile-major candidates (tile_local_nms recorded), and the grid
+     over a 12-slice prefix (warm-up 2) equal to its run on the CPU; (c)
+     two Gloo ranks, run_temporal_exact over 2 windows, warm-up 4: each
+     window bit-equal to the sequential exact run over its slices from a
+     fresh state (t0 pinned), and how many post-warm-up slices equal the
+     stream-long sequential run's cluster sets printed. Per rank, timed
+     after a warm-up run in the rank: ms per slice of the window loop (the
+     fusion left out), fusion ms, collective calls and launches per kernel (one
+     assign_manhattan and one cluster_stats per slice scanned, warm-up
+     included: 24 in (b); 20 exact launches in (c)).
 Every phase's line carries the card's name and power limit beside its
 times. Then one JSON line of per-kernel results and, last, the status line
 {"ok": true, "device": {...}}. A kernel's `launches` is its count over the
@@ -89,7 +109,10 @@ type, both counted from this run's shapes and data (`kernel_bounds`). Its
 grid can go, however small its bound. The exact engine is serial, so it
 also gets `latency_floor_ms`: its events times the shortest dependent
 chain per event. Its `library_ms` is null: no
-single PyTorch call computes any of the four functions. The stencil's
+single PyTorch call computes any of the four functions. cluster_stats'
+entry also has `max_abs_err_k_after`, `k_after_ms`, `k_after_plain_ms`
+and `k_after_device_ms`: the same against its plain version with a
+nonzero k_after (the later tiles' counts of the tiled update). The stencil's
 entry also has `all_tiles_ms`, `all_tiles_device_ms`, `all_tiles_bound_ms`
 and `all_tiles_launch_floor_ms`, the same on the all-ones map.
 
@@ -926,21 +949,428 @@ def cli_phase(card, stream, n) -> None:
             cpu_ms[name] = round((time.perf_counter() - t) * 1e3)
             assert lines_match(got, want), (name, got, want)
 
-        # ---- temporal waits for its port
-        try:
-            run_cli(["temporal", "--input", raw] + cuda)
-            raise AssertionError("temporal ran")
-        except SystemExit as e:
-            assert e.code not in (0, None) and "not ported" in str(e.code), e.code
         print(f"CLI checks on {card}: corner-track and cluster-flow --exact split into "
               f"{n_slices // 2} + {n_slices // 2} slices with --checkpoint / --resume print "
               f"the unbroken runs' slices; each subcommand's card run equals its CPU run on "
               f"the {CLI_PREFIX_SLICES}-slice prefix (optics on {OPTICS_CPU_EVENTS} events of "
-              f"slice 3; the CPU runs' ms {cpu_ms}); temporal exits with its message",
+              f"slice 3; the CPU runs' ms {cpu_ms})",
               flush=True)
     print(f"CLI wall ms on {card}: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
           + f"; sampling {events_s:.0f} events/s (dedup_batched over {n_slices} slices, its "
           f"own timer); EVT3 native decode {rate:.0f} events/s; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 14: the spatio-temporal layer at DEFAULT
+GRID_WINDOWS, GRID_TILES, GRID_WARMUP = 2, 2, 8
+GRID_CPU_SLICES, GRID_CPU_WARMUP = 12, 2   # the prefix the CPU run repeats
+EXACT_WINDOWS, EXACT_WARMUP = 2, 4
+RANK_TIMEOUT_S = 300
+
+
+def phase3_stream(n):
+    """The 32-slice stream of phases 2-13, made again from its seed (a
+    spawned rank makes its own)."""
+    from evflow_tpu_torch import io
+    return io.synthetic.moving_blob_stream(
+        num_slices=N_SLICES, events_per_slice=n,
+        blob_centers=((200.0, 200.0), (900.0, 500.0), (600.0, 150.0)),
+        velocities=((30.0, 10.0), (-20.0, 15.0), (5.0, -12.0)),
+        sigma=12.0, seed=SEED)
+
+
+def spawn_ranks(target, size: int) -> list:
+    """target(rank, size, store, out) on `size` spawned ranks joined by a
+    FileStore; each rank's saved arrays. A rank that has not ended within
+    RANK_TIMEOUT_S fails the phase; every rank is stopped before return."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        store, out = f"{tmp}/store", f"{tmp}/out"
+        procs = [ctx.Process(target=target, args=(r, size, store, out)) for r in range(size)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(RANK_TIMEOUT_S)
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            assert not hung, f"ranks {hung} did not end within {RANK_TIMEOUT_S} s"
+            assert [p.exitcode for p in procs] == [0] * size, [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [dict(np.load(f"{out}.{r}.npz")) for r in range(size)]
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Counts of dist.all_gather and dist.all_reduce calls made within."""
+    import torch.distributed as dist
+    saved = dist.all_gather, dist.all_reduce
+    calls = {"all_gather": 0, "all_reduce": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    dist.all_gather, dist.all_reduce = (counted("all_gather", saved[0]),
+                                        counted("all_reduce", saved[1]))
+    try:
+        yield calls
+    finally:
+        dist.all_gather, dist.all_reduce = saved
+
+
+@contextlib.contextmanager
+def timed_fusion():
+    """Wall ms of the fusion calls made within (fuse_tracklets,
+    fuse_clusters), each ended by a synchronize."""
+    from evflow_tpu_torch.parallel import temporal
+    saved = temporal.fuse_tracklets, temporal.fuse_clusters
+    spent = [0.0]
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            r = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += (time.perf_counter() - t) * 1e3
+            return r
+        return call
+
+    temporal.fuse_tracklets, temporal.fuse_clusters = map(timed, saved)
+    try:
+        yield spent
+    finally:
+        temporal.fuse_tracklets, temporal.fuse_clusters = saved
+
+
+@contextlib.contextmanager
+def recorded_nms():
+    """Each tile_local_nms call's candidates and survivor count, in call
+    order: (x, y, valid, count) numpy arrays."""
+    from evflow_tpu_torch.parallel import tiling
+    saved = tiling.tile_local_nms
+    calls = []
+
+    def record(cx, cy, cvalid, *args, **kwargs):
+        filt = saved(cx, cy, cvalid, *args, **kwargs)
+        calls.append([a.cpu().numpy() for a in (cx, cy, cvalid, filt.count)])
+        return filt
+
+    tiling.tile_local_nms = record
+    try:
+        yield calls
+    finally:
+        tiling.tile_local_nms = saved
+
+
+def _gloo_on_card(rank, size, store):
+    import os
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # the ranks share one host
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, 8 // size))
+    dist.init_process_group("gloo", store=dist.FileStore(store, size), rank=rank,
+                            world_size=size)
+
+
+def _leaves(prefix, tree) -> dict:
+    from evflow_tpu_torch import interop
+    return {prefix + name: leaf for name, leaf in interop.named_leaves(tree)}
+
+
+def grid_rank(rank, size, store, out):
+    """Phase 14 (b), one of four Gloo ranks on card 0: run_temporal on the
+    (2 x 2) grid over the 12-slice prefix on the card (also the process'
+    warm-up), over the 32 slices, counted (launches, collectives, NMS
+    candidates, fusion ms), and over the prefix on the CPU."""
+    import torch.distributed as dist
+    from evflow_tpu_torch import DEFAULT, io, kernels
+    from evflow_tpu_torch.parallel import mesh, temporal
+    _gloo_on_card(rank, size, store)
+    try:
+        cfg, n = DEFAULT, DEFAULT.slicing.n_events
+        sl = io.slice_by_count(phase3_stream(n), n, drop_partial=True)
+        grid = mesh.make_grid_mesh(GRID_WINDOWS, GRID_TILES, cfg.parallel)
+        prefix = io.slice_by_count(phase3_stream(n)[:GRID_CPU_SLICES * n], n, drop_partial=True)
+        res = _leaves("prefix_cuda", temporal.run_temporal(
+            prefix, grid, GRID_WINDOWS, GRID_TILES, GRID_CPU_WARMUP, cfg))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with counted_collectives() as calls, timed_fusion() as fusion, \
+                recorded_nms() as cands:
+            t = time.perf_counter()
+            o = temporal.run_temporal(sl, grid, GRID_WINDOWS, GRID_TILES, GRID_WARMUP, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        res.update(_leaves("run", o))
+        res.update({f"launches.{k}": v for k, v in kernels.LAUNCHES.items()})
+        res.update({f"calls.{k}": v for k, v in calls.items()})
+        res.update(wall_ms=wall, fusion_ms=fusion[0],
+                   nms=np.stack([np.stack(c[:3]) for c in cands]),
+                   nms_count=np.array([int(c[3]) for c in cands]))
+        res.update(_leaves("prefix_cpu", temporal.run_temporal(
+            prefix, grid, GRID_WINDOWS, GRID_TILES, GRID_CPU_WARMUP, cfg, device="cpu")))
+        np.savez(f"{out}.{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def exact_rank(rank, size, store, out):
+    """Phase 14 (c), one of two Gloo ranks on card 0: run_temporal_exact
+    over 2 windows of the 32 slices, counted, after a warm-up run over a
+    4-slice prefix."""
+    import torch.distributed as dist
+    from evflow_tpu_torch import DEFAULT, io, kernels
+    from evflow_tpu_torch.parallel import mesh, temporal
+    _gloo_on_card(rank, size, store)
+    try:
+        cfg, n = DEFAULT, DEFAULT.slicing.n_events
+        sl = io.slice_by_count(phase3_stream(n), n, drop_partial=True)
+        data = mesh.make_data_mesh(EXACT_WINDOWS, cfg.parallel)
+        temporal.run_temporal_exact(io.slice_by_count(phase3_stream(n)[:4 * n], n), data,
+                                    EXACT_WINDOWS, 1, cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with counted_collectives() as calls, timed_fusion() as fusion:
+            t = time.perf_counter()
+            o = temporal.run_temporal_exact(sl, data, EXACT_WINDOWS, EXACT_WARMUP, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        res = _leaves("run", o)
+        res.update({f"launches.{k}": v for k, v in kernels.LAUNCHES.items()})
+        res.update({f"calls.{k}": v for k, v in calls.items()})
+        res.update(wall_ms=wall, fusion_ms=fusion[0])
+        np.savez(f"{out}.{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def determined(n_obs, n_windows, boundary_ok) -> np.ndarray:
+    """(K, W+1) refined boundaries that two runs must agree on: supported,
+    on a chain whose observations determine its system (2 unknowns per
+    window plus 1; with fewer, only the 1e-6 regularization decides the
+    solve, and f32 rounding moves it: tests/test_torch_temporal.py)."""
+    return boundary_ok & (n_obs >= 2 * n_windows + 1)[:, None]
+
+
+def temporal_close(got: dict, want: dict, what: str) -> None:
+    """Two runs' TemporalOutput leaves by name (".cl_n", ...): discrete
+    leaves equal, cluster floats within CLUSTER_TOL, track floats within
+    TRACK_TOL, boundary positions where `determined` within rtol 1e-4,
+    atol 1e-3."""
+    keep = determined(want[".refined.n_obs"], want[".refined.n_windows"],
+                      want[".refined.boundary_ok"])
+    assert sorted(got) == sorted(want), what
+    for name, b in want.items():
+        a, where = got[name], f"{what}{name}"
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        if name.endswith("boundary_pos"):
+            np.testing.assert_allclose(a[keep], b[keep], rtol=1e-4, atol=1e-3, err_msg=where)
+        elif a.dtype.kind == "f":
+            tol = TRACK_TOL if ".track_" in name else CLUSTER_TOL
+            np.testing.assert_allclose(a, b, **tol, err_msg=where)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=where)
+
+
+def temporal_phase(card, stream, n) -> None:
+    """Phase 14 (see the module docstring), a line per part."""
+    import os
+    import tempfile
+    from evflow_tpu_torch import DEFAULT, interop, io, kernels
+    from evflow_tpu_torch.io import evt3
+    from evflow_tpu_torch.models import aeclustering as ae, fastcluster, pipeline
+    from evflow_tpu_torch.ops import hash_dedup, nms
+    from evflow_tpu_torch.parallel import mesh, temporal
+    cfg = DEFAULT
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sl = io.slice_by_count(stream, n, drop_partial=True)
+    n_slices = sl.num_slices
+    xs, ys, vs = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                  for a in (sl.x, sl.y, sl.valid_mask()))
+
+    # ---- (a) one rank of a NCCL group: run_temporal on a 1 x 1 grid against
+    # cluster_flow_scan, then the CLI's temporal and temporal --exact
+    with tempfile.TemporaryDirectory() as tmp, nccl_world_of_one() as calls:
+        grid = mesh.make_grid_mesh(1, 1, cfg.parallel)
+        for ax in grid.axes:          # NCCL sets a group up at its first collective
+            mesh.psum(torch.zeros(1, device=dev), ax)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = temporal.run_temporal(sl, grid, 1, 1, 0, cfg)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t) * 1e3 / n_slices
+        one_launches = dict(kernels.LAUNCHES)
+        for name in ("assign_manhattan", "cluster_stats"):
+            assert one_launches[name] == n_slices, one_launches
+        _, scan = pipeline.cluster_flow_scan(fastcluster.init_state(cfg.cluster, device=dev),
+                                             xs, ys, vs, cfg)
+        interop.assert_trees_close(
+            (out.cl_reported[0], out.cl_cid[0], out.cl_n[0], out.cl_centroid[0],
+             out.cl_flow[0] * cfg.flow.extrapolation),
+            (scan.reported, scan.cid, scan.n, scan.centroid, scan.flow), **CLUSTER_TOL,
+            what="1 x 1 grid vs cluster_flow_scan")
+        assert int(out.num_corners[0, 0]) == 0 and bool((out.num_corners[0, 1:] > 0).all())
+        raw = os.path.join(tmp, "stream.raw")
+        evt3.save_evt3(stream, raw, vectorize=False)
+        cli = {}
+        for label, argv in (("temporal", ["--windows", "1", "--tiles", "1"]),
+                            ("temporal --exact", ["--exact", "--windows", "1"])):
+            text, launches, ms = run_cli(["temporal", "--input", raw, *argv, "--device", "cuda"])
+            lines = [ln for ln in text.splitlines() if ln.startswith("window 0 slice ")]
+            assert len(lines) == n_slices, text
+            scanned = n_slices + 8         # the CLI's default warm-up of 8 slices
+            kernels_run = ("aeclustering_exact",) if "exact" in label else (
+                "assign_manhattan", "cluster_stats")
+            for name in kernels_run:
+                assert launches[name] == scanned, (label, launches)
+            assert ("cross-window cluster chains:" if "exact" in label
+                    else "refined track chains:") in text
+            cli[label] = (ms, {k: v for k, v in launches.items() if v}, text.splitlines()[-1])
+    print(f"temporal on {card}, one rank of a NCCL group: run_temporal on a 1 x 1 grid over "
+          f"{n_slices} DEFAULT slices (warm-up 0) equals cluster_flow_scan (cluster streams; "
+          f"discrete exact, floats within rtol 1e-5, atol 1e-3); {one_ms:.3f} ms/slice; launches "
+          f"{ {k: v for k, v in one_launches.items() if v} }; collectives {calls}; CLI "
+          + "; ".join(f"{k}: {v[0]:.1f} ms, launches {v[1]}, last line {v[2]!r}"
+                      for k, v in cli.items()), flush=True)
+
+    # ---- (b) four Gloo ranks on card 0: the (2 x 2) grid
+    t = time.perf_counter()
+    ranks = spawn_ranks(grid_rank, GRID_WINDOWS * GRID_TILES)
+    spawn_s = time.perf_counter() - t
+    for r in ranks[1:]:
+        for name in ranks[0]:
+            if name.startswith(("run.", "prefix_")):
+                assert np.array_equal(r[name], ranks[0][name]), f"rank outputs differ: {name}"
+    got = ranks[0]
+    s_win = GRID_WARMUP + n_slices // GRID_WINDOWS
+    for r in ranks:
+        assert r["launches.assign_manhattan"] == r["launches.cluster_stats"] == s_win, r
+    # each window's cluster streams: update_slice over the window's slices in
+    # tile-major order, with the tiles' own dedup masks, from a fresh state
+    x, y, _t, valid, emit, _armed = temporal.window_tile_events(
+        sl, GRID_WINDOWS, GRID_TILES, GRID_WARMUP, cfg)
+    n_emit = emit.shape[1] - GRID_WARMUP
+    for w in range(GRID_WINDOWS):
+        st = fastcluster.init_state(cfg.cluster, device=dev)
+        for s in range(s_win):
+            tx, ty, tv = (torch.as_tensor(a[w, :, s], device=dev) for a in (x, y, valid))
+            mask = torch.cat([hash_dedup.dedup_mask(tx[k], ty[k], tv[k], cfg.dedup,
+                                                    cfg.sensor).unique_mask
+                              for k in range(GRID_TILES)])
+            st, o = fastcluster.update_slice(st, tx.reshape(-1), ty.reshape(-1), mask,
+                                             cfg.cluster, cfg.sensor)
+            if s >= GRID_WARMUP:
+                e = s - GRID_WARMUP
+                interop.assert_trees_close(
+                    (got["run.cl_reported"][w, e], got["run.cl_cid"][w, e], got["run.cl_n"][w, e],
+                     got["run.cl_centroid"][w, e], got["run.cl_flow"][w, e]),
+                    (o.reported, o.cid, o.n, o.centroid, o.flow), **CLUSTER_TOL,
+                    what=f"window {w} slice {e} vs update_slice")
+    # num_filtered: the tiles' survivors against filter_corners on the
+    # gathered tile-major candidates (2 exchange rounds are the fixpoint at
+    # 2 tiles); rank w * 2 + k recorded its tile's calls, slice by slice
+    filtered = []
+    for w in range(GRID_WINDOWS):
+        tiles = [ranks[w * GRID_TILES + k] for k in range(GRID_TILES)]
+        for s in range(s_win):
+            cand = np.concatenate([r["nms"][s] for r in tiles], axis=1)
+            ref = nms.filter_corners(*(torch.as_tensor(a, device=dev) for a in
+                                       (cand[0], cand[1], cand[2].astype(bool))), cfg.nms)
+            n_tiles_sum = sum(int(r["nms_count"][s]) for r in tiles)
+            assert int(ref.count) == n_tiles_sum, (w, s, int(ref.count), n_tiles_sum)
+            if s >= GRID_WARMUP:
+                filtered.append(n_tiles_sum)
+    assert sum(filtered) > 0
+    refined_ok = int(got["run.refined.valid"].sum())
+    chains = int((got["run.cluster_chain"] >= 0).sum())
+    # the 12-slice prefix: the card against the CPU
+    temporal_close(*({k[len(p):]: v for k, v in got.items() if k.startswith(p)}
+                     for p in ("prefix_cuda", "prefix_cpu")), "12-slice prefix, card vs CPU")
+    print(f"temporal on {card}, (2 x 2) grid of four Gloo ranks on one card, warm-up "
+          f"{GRID_WARMUP}, {n_emit} emitted slices per window, tile width "
+          f"{-(-cfg.sensor.width // GRID_TILES)}: every rank's streams and fusion products "
+          f"bit-equal; each window's cluster streams equal update_slice over its slices in "
+          f"tile-major order from a fresh state; num_filtered equals filter_corners on the "
+          f"gathered candidates at every slice (post-warm-up {filtered}); {refined_ok} refined "
+          f"chains, {chains} chained cluster slots; the 12-slice prefix (warm-up "
+          f"{GRID_CPU_WARMUP}) equals the CPU run; per rank ms/slice of the window loop "
+          f"{[round((float(r['wall_ms']) - float(r['fusion_ms'])) / s_win, 3) for r in ranks]}"
+          f", fusion ms "
+          f"{[round(float(r['fusion_ms']), 3) for r in ranks]}, collective calls "
+          f"{[(int(r['calls.all_gather']), int(r['calls.all_reduce'])) for r in ranks]} "
+          f"(all_gather, all_reduce), launches per rank "
+          f"{[(int(r['launches.assign_manhattan']), int(r['launches.cluster_stats'])) for r in ranks]}"
+          f" (assign_manhattan, cluster_stats); spawn and run {spawn_s:.1f} s", flush=True)
+
+    # ---- (c) two Gloo ranks on card 0: the exact engine over 2 windows
+    t = time.perf_counter()
+    ranks = spawn_ranks(exact_rank, EXACT_WINDOWS)
+    spawn_s = time.perf_counter() - t
+    for r in ranks[1:]:
+        for name in ranks[0]:
+            if name.startswith("run."):
+                assert np.array_equal(r[name], ranks[0][name]), f"rank outputs differ: {name}"
+    got = ranks[0]
+    x, y, tt, valid, emit = temporal.window_events(sl, EXACT_WINDOWS, EXACT_WARMUP)
+    s_win = x.shape[1]
+    for r in ranks:
+        assert r["launches.aeclustering_exact"] == s_win, r
+    fields = ("alive", "cid", "n", "mu", "centroid", "digest")
+
+    def sequential(xw, yw, tw, vw, em):
+        """The exact path over these slices from a fresh state, t0 pinned:
+        the snapshot fields per slice (alive masked by emit)."""
+        st = ae.init_state(cfg.cluster, device=dev)._replace(
+            has_t0=torch.ones((), dtype=torch.bool, device=dev))
+        cum, snaps = torch.zeros((), dtype=torch.int32, device=dev), []
+        for s in range(xw.shape[0]):
+            a = [torch.as_tensor(np.ascontiguousarray(v[s]), device=dev)
+                 for v in (xw, yw, tw, vw)]
+            st, view, cum = pipeline.cluster_flow_step_exact(st, *a, cfg, cum)
+            snaps.append([view.alive & bool(em[s]), view.cid, view.n, view.mu,
+                          view.centroid, ae.membership_digest(st, cfg.cluster)])
+        return [torch.stack(f).cpu().numpy() for f in zip(*snaps)]
+
+    for w in range(EXACT_WINDOWS):
+        want = sequential(x[w], y[w], tt[w], valid[w], emit[w])
+        for f, a in zip(fields, want):
+            assert np.array_equal(got[f"run.{f}"][w], a[EXACT_WARMUP:]), (w, f)
+    # the stream-long sequential run's canonical cluster sets, slice by slice
+    t_all = (sl.t - int(sl.t[0, 0])).astype(np.int32)
+    whole = sequential(sl.x, sl.y, t_all, sl.valid_mask(), np.ones(n_slices, bool))
+
+    def canon(alive, nn, mu, cen, dig):
+        return sorted((int(nn[i]), *cen[i].tolist(), *mu[i].tolist(), int(dig[i]))
+                      for i in np.where(alive)[0])
+
+    n_emit = got["run.alive"].shape[1]
+    same = sum(canon(*(got[f"run.{f}"][w, s] for f in ("alive", "n", "mu", "centroid",
+                                                        "digest")))
+               == canon(*(whole[i][w * n_emit + s] for i in (0, 2, 3, 4, 5)))
+               for w in range(EXACT_WINDOWS) for s in range(n_emit))
+    print(f"temporal --exact on {card}, two Gloo ranks on one card, {EXACT_WINDOWS} windows, "
+          f"warm-up {EXACT_WARMUP}: every rank's output bit-equal; each window bit-equal to "
+          f"the sequential exact run over its slices from a fresh state (t0 pinned); "
+          f"{same} of {EXACT_WINDOWS * n_emit} post-warm-up slices equal the stream-long "
+          f"sequential run's canonical cluster sets (a finding at DEFAULT, not a check); "
+          f"{int((got['run.cluster_chain'] >= 0).sum())} chained slots; per rank ms/slice of "
+          f"the window loop "
+          f"{[round((float(r['wall_ms']) - float(r['fusion_ms'])) / s_win, 3) for r in ranks]}"
+          f", fusion ms "
+          f"{[round(float(r['fusion_ms']), 3) for r in ranks]}, collective calls "
+          f"{[(int(r['calls.all_gather']), int(r['calls.all_reduce'])) for r in ranks]}, "
+          f"exact launches per rank {[int(r['launches.aeclustering_exact']) for r in ranks]}; "
+          f"spawn and run {spawn_s:.1f} s; phase 14 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -1041,11 +1471,26 @@ def main() -> int:
     results["cluster_stats"] = dict(max_abs_err=float((st_k - st_p).abs().max()), **timed(
         lambda: ck.cluster_stats(labels, px, py, alpha, c),
         lambda: ck.cluster_stats_plain(labels, px, py, alpha, c)))
+    # the tiled update's form: ranks continue into later tiles' members (up
+    # to 40 of them, so a cluster's newest members keep weights above the
+    # clamp at exponent 80)
+    k_after = torch.as_tensor(np.random.default_rng(SEED).integers(0, 40, c).astype(np.int32),
+                              device=dev)
+    st_ka = ck.cluster_stats(labels, px, py, alpha, c, k_after)
+    st_pa = ck.cluster_stats_plain(labels, px, py, alpha, c, k_after)
+    torch.cuda.synchronize()
+    assert torch.equal(st_ka[:, 0], st_pa[:, 0]), "cluster_stats (k_after): counts differ"
+    torch.testing.assert_close(st_ka, st_pa, rtol=1e-5, atol=1e-3)
+    results["cluster_stats"].update(max_abs_err_k_after=float((st_ka - st_pa).abs().max()), **{
+        f"k_after_{k}": v for k, v in timed(
+            lambda: ck.cluster_stats(labels, px, py, alpha, c, k_after),
+            lambda: ck.cluster_stats_plain(labels, px, py, alpha, c, k_after)).items()})
     print(f"kernels vs plain: efast mask bit-equal ({corners_full} corner pixels, "
           f"{int(act.sum())}/{act.numel()} tiles active), assign_manhattan "
           f"bit-equal ({int((lab_k >= 0).sum())} assigned, {int(cl.alive.sum())} clusters "
           f"alive), cluster_stats counts exact, max |err| "
-          f"{results['cluster_stats']['max_abs_err']:.3g}, bit-equal over two calls "
+          f"{results['cluster_stats']['max_abs_err']:.3g} (with k_after "
+          f"{results['cluster_stats']['max_abs_err_k_after']:.3g}), bit-equal over two calls "
           f"({int((st_k[:, 0] > 0).sum())} clusters with members)", flush=True)
 
     # the exact engine: 3 slices with the kernel, then 2 more from that state
@@ -1232,6 +1677,10 @@ def main() -> int:
         + ", ".join(f"{k} {r['ms']:.4f} ({r['plain_ms']:.4f}; {r['device_ms']:.4f}; "
                     f"{r['ms'] - r['device_ms']:.4f})" for k, r in results.items()),
         flush=True)
+    ka = results["cluster_stats"]
+    print(f"cluster_stats with a nonzero k_after on {card}: {ka['k_after_ms']:.4f} ms per eager "
+          f"call, {ka['k_after_device_ms']:.4f} device (without: {ka['ms']:.4f}, "
+          f"{ka['device_ms']:.4f}), plain {ka['k_after_plain_ms']:.4f}", flush=True)
     print("bounds: " + "; ".join(f"{k} {b['bound_ms']:.6f} ms by {b['bound_by']} "
                                  f"({b['bound_basis']}), launch floor "
                                  f"{b['launch_floor_ms']:.6f} ms at grid {b['grid']}"
@@ -1274,6 +1723,9 @@ def main() -> int:
     # ---- 13. the CLI
     cli_phase(card, stream, n)
 
+    # ---- 14. the spatio-temporal layer
+    temporal_phase(card, stream, n)
+
     sources = {"efast_stencil": ("evflow_tpu_torch/csrc/efast_stencil.cu",
                                  "evflow_tpu/ops/efast.py:397"),
                "assign_manhattan": ("evflow_tpu_torch/csrc/assign_manhattan.cu",
@@ -1295,7 +1747,8 @@ def main() -> int:
          **({"all_tiles_ms": r["all_tiles_ms"], "all_tiles_device_ms": r["all_tiles_device_ms"],
              "all_tiles_bound_ms": all_tiles_bound["bound_ms"],
              "all_tiles_launch_floor_ms": bounds[name]["launch_floor_ms"]}
-            if name == "efast_stencil" else {})}
+            if name == "efast_stencil" else {}),
+         **{k: v for k, v in r.items() if k.startswith(("k_after_", "max_abs_err_k"))}}
         for name, r in results.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,13 @@
 // and w = alpha * (1 - alpha)^clip(k - 1 - rank, 0, 80). Labels outside
 // [0, C) belong to no cluster.
 //
+// An optional (C,) int32 k_after counts each cluster's members in the
+// tiles that follow this one in tile-major order (the tiled update,
+// models/fastcluster.py:update_slice_distributed): the members' ranks are
+// then global, and the exponent is k + k_after - 1 - rank. The rows keep
+// this call's own counts and sums; the caller all-reduces them. Null: no
+// later tiles, the same code as without the argument.
+//
 // What bounds it on an H100: at the main path's size (N = 16384, C = 128)
 // the function moves 12 bytes per event and 20 per cluster, 0.2 MB, about
 // 0.06 us at 3.35 TB/s; its arithmetic is a few ops per event. Both are far
@@ -39,7 +46,8 @@
 //      others sort while they fence;
 //   4. each CTA reads the other CTAs' counts through distributed shared
 //      memory (map_shared_rank): the lower ranks' give its offsets, all
-//      eight give k, so the exponent of the CTA's first member is known;
+//      eight give k, so the exponent of the CTA's first member is known
+//      (k_after[j] added where given);
 //   5. chunk by chunk (a range of more chunks stages, ranks and sorts each
 //      again), a warp per cluster sums its bucket lane-strided, with
 //      weights from a table of alpha (1 - alpha)^e for e = 0..80 (the
@@ -354,6 +362,7 @@ template <bool kChunked>
 __global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kThreads)
 cluster_stats_kernel(const int32_t* __restrict__ labels,
                      const float* __restrict__ x, const float* __restrict__ y,
+                     const int32_t* __restrict__ k_after,
                      int n, int c, int cp, int per_cta, int ch, int rw, float alpha,
                      float* __restrict__ out) {
   extern __shared__ __align__(16) int smem[];
@@ -435,7 +444,8 @@ cluster_stats_kernel(const int32_t* __restrict__ labels,
       off += r < rank ? v : 0;
       k += v;
     }
-    s.erun[j] = k - 1 - off;
+    // unclamped here, clamped to [0, 80] where the weight is looked up
+    s.erun[j] = k - 1 - off + (k_after ? k_after[j] : 0);
     if (j % kCtas == rank) s.ktot[j / kCtas] = k;
     s.part[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -498,7 +508,7 @@ cluster_stats_kernel(const int32_t* __restrict__ labels,
 }  // namespace
 
 extern "C" int cluster_stats(const void* labels, const void* x, const void* y,
-                             int n, int c, float alpha, void* out,
+                             int n, int c, float alpha, const void* k_after, void* out,
                              void* stream) {
   if (c < 1 || c > (1 << kLabelBits)) return (int)cudaErrorInvalidValue;
   const int cp = (c + 3) / 4 * 4;
@@ -523,6 +533,7 @@ extern "C" int cluster_stats(const void* labels, const void* x, const void* y,
   }
   kernel<<<kCtas, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(labels), static_cast<const float*>(x),
-      static_cast<const float*>(y), n, c, cp, per_cta, ch, rw, alpha, static_cast<float*>(out));
+      static_cast<const float*>(y), static_cast<const int32_t*>(k_after), n, c, cp, per_cta,
+      ch, rw, alpha, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -47,8 +47,8 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _P],
     # x, y, n, mu, alive, c, radius, labels, dist
     "assign_manhattan": [_P, _P, _I, _P, _P, _I, _F, _P, _P],
-    # labels, x, y, n, c, alpha, out
-    "cluster_stats": [_P, _P, _P, _I, _I, _F, _P],
+    # labels, x, y, n, c, alpha, k_after (null: none), out
+    "cluster_stats": [_P, _P, _P, _I, _I, _F, _P, _P],
     # scal, ev, ring_in, ivec, mu_in, m, c, radius, alpha, one_minus,
     # ring_out, ivec_out, mu_out, scal_out
     "aeclustering_exact": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],

@@ -14,11 +14,23 @@ Per slice:
   6. centroid flow per persistent cluster id.
 Seeding and merging are plain torch, as the JAX package computes them
 outside any Pallas kernel.
+
+`update_slice` and the tiled `update_slice_distributed` share one
+implementation (`_update_slice_impl`), as in JAX. With a mesh axis, x, y
+and valid are one tile's events and only per-cell and per-cluster partials
+cross the axis: the (G, 3) orphan-cell aggregates are all-reduced before
+the seeding decision, the (C,) member counts are all-gathered so each
+tile's ranks continue those of the tiles before it (tile-major stream
+order: cluster_stats takes the later tiles' counts, k_after), and the
+(C, 5) rows are all-reduced. Merge, expiry and flow then run on the same
+inputs on every rank, so the replicated state stays bit-identical across
+ranks, and the result equals update_slice on the tile-major concatenation
+of the tiles' events up to f32 summation order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,6 +38,7 @@ from ..config import ClusterConfig, SensorConfig
 
 from ..ops import cluster_kernels
 from ..ops.cluster_kernels import log1m as _log1m
+from ..parallel import mesh as mesh_mod
 
 _BIG = 2**31 - 1
 
@@ -74,10 +87,11 @@ def init_state(cfg: ClusterConfig = ClusterConfig(), window_slices: int = 4,
 
 
 def _seed(state: FastState, x, y, valid, assigned, cfg: ClusterConfig,
-          sensor: SensorConfig, grid_cells: int):
+          sensor: SensorConfig, grid_cells: int, axis: Optional[mesh_mod.Axis]):
     """Step 2: one new cluster per occupied grid cell of orphan events (cell
-    index order), in the lowest free slots. Returns the seeded state fields
-    and each orphan event's new slot (-1 where none)."""
+    index order), in the lowest free slots; with an axis, the cells of all
+    its tiles. Returns the seeded state fields and each orphan event's new
+    slot (-1 where none)."""
     c = cfg.max_clusters
     dev = x.device
     i32 = torch.int32
@@ -89,6 +103,8 @@ def _seed(state: FastState, x, y, valid, assigned, cfg: ClusterConfig,
     feats = torch.stack([torch.ones_like(x), x, y], 1).to(torch.int64)
     agg = torch.zeros((grid_cells + 1, 3), dtype=torch.int64, device=dev).index_add(
         0, cell.long(), feats)[:grid_cells]
+    if axis is not None:
+        agg = mesh_mod.psum(agg, axis)
     cell_cnt = agg[:, 0].to(i32)
     cell_sum = agg[:, 1:].to(torch.float32)
     occupied = cell_cnt > 0
@@ -134,6 +150,23 @@ def update_slice(state: FastState, x: torch.Tensor, y: torch.Tensor,
                  sensor: SensorConfig = SensorConfig(), grid_cells: int = 4096
                  ) -> Tuple[FastState, SliceOutput]:
     """One slice step over (N,) int32 event coordinates and their validity."""
+    return _update_slice_impl(state, x, y, valid, cfg, sensor, grid_cells, None)
+
+
+def update_slice_distributed(state: FastState, x: torch.Tensor, y: torch.Tensor,
+                             valid: torch.Tensor, axis: mesh_mod.Axis,
+                             cfg: ClusterConfig = ClusterConfig(),
+                             sensor: SensorConfig = SensorConfig(), grid_cells: int = 4096
+                             ) -> Tuple[FastState, SliceOutput]:
+    """The tiled twin of update_slice: x, y, valid are this rank's tile's
+    events along `axis`, the state is replicated and stays bit-identical on
+    every rank; labels index the local events (see the module doc)."""
+    return _update_slice_impl(state, x, y, valid, cfg, sensor, grid_cells, axis)
+
+
+def _update_slice_impl(state: FastState, x, y, valid, cfg: ClusterConfig,
+                       sensor: SensorConfig, grid_cells: int,
+                       axis: Optional[mesh_mod.Axis]) -> Tuple[FastState, SliceOutput]:
     c = cfg.max_clusters
     dev = x.device
     i32, f32 = torch.int32, torch.float32
@@ -146,12 +179,21 @@ def update_slice(state: FastState, x: torch.Tensor, y: torch.Tensor,
     labels = torch.where(assigned, best, -1)
 
     # ---- 2. seeding
-    f, ev_slot = _seed(state, x, y, valid, assigned, cfg, sensor, grid_cells)
+    f, ev_slot = _seed(state, x, y, valid, assigned, cfg, sensor, grid_cells, axis)
     labels = torch.where(ev_slot >= 0, ev_slot, labels)
     member = labels >= 0
 
     # ---- 3+4. EWMA means and this slice's ring aggregates (kernel)
-    sums = cluster_kernels.cluster_stats(labels, px, py, cfg.alpha, c)
+    if axis is None:
+        sums = cluster_kernels.cluster_stats(labels, px, py, cfg.alpha, c)
+    else:
+        # tile-major ranks: each exponent counts on through the later tiles'
+        # members of its cluster; the tiles' rows then add up
+        k_loc = torch.zeros(c + 1, dtype=i32, device=dev).index_add_(
+            0, torch.where(member, labels, c).long(), torch.ones_like(labels))[:c]
+        k_after = mesh_mod.all_gather(k_loc, axis)[axis.index + 1:].sum(0, dtype=i32)
+        sums = mesh_mod.psum(
+            cluster_kernels.cluster_stats(labels, px, py, cfg.alpha, c, k_after), axis)
     k_i = sums[:, 0].to(i32)
     la = _log1m(cfg.alpha)
     decay = torch.exp(torch.clamp(sums[:, 0], 0.0, 80.0) * la)

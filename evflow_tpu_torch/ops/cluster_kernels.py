@@ -4,7 +4,8 @@ evflow_tpu/ops/pallas_kernels.py), each beside its plain PyTorch version.
 - `assign_manhattan` (csrc/assign_manhattan.cu): fastcluster step 1, the
   gated L1 assignment of events to cluster means.
 - `cluster_stats` (csrc/cluster_stats.cu): fastcluster steps 3-4, member
-  counts, stream-order ranks, EWMA weights and the (C, 5) aggregates.
+  counts, stream-order ranks, EWMA weights and the (C, 5) aggregates; with
+  `k_after`, the ranks of one tile of a tiled slice.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 for CPU tensors; the plain versions are what the CPU tests run and what the
@@ -69,17 +70,22 @@ def assign_manhattan(x: torch.Tensor, y: torch.Tensor, mu: torch.Tensor,
 
 
 def cluster_stats_plain(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                        alpha: float, c: int) -> torch.Tensor:
+                        alpha: float, c: int, k_after: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """(C, 5) f32 [k, sum x, sum y, sum w x, sum w y] per cluster, with
     w = alpha (1-alpha)^clip(k-1-rank, 0, 80) and rank the member's
     stream-order position in its cluster; labels -1 belong to none. As the
-    JAX oracle: an inclusive one-hot cumsum gives k - 1 - rank = k - P."""
+    JAX oracle: an inclusive one-hot cumsum gives k - 1 - rank = k - P.
+    With k_after ((C,) int32, the members of later tiles), the exponent is
+    k + k_after - P: ranks count on into the tiles that follow."""
     n = labels.shape[0]
     iota = torch.arange(c, dtype=labels.dtype, device=labels.device)
     onehot = (labels[:, None] == iota[None, :]).to(torch.float32)   # (N, C)
     p = torch.cumsum(onehot, 0)
     k = p[-1] if n else torch.zeros(c, device=labels.device)
     la = log1m(alpha)
+    if k_after is not None:
+        k = k + k_after.to(torch.float32)
     expo = torch.clamp(k[None, :] - p, 0.0, 80.0)
     w = (onehot * (alpha * torch.exp(expo * la))).sum(1)
     member = (labels >= 0)[:, None]
@@ -88,17 +94,22 @@ def cluster_stats_plain(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
 
 def cluster_stats(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                  alpha: float, c: int) -> torch.Tensor:
-    """Per-slice cluster statistics; labels (N,) int32, x, y (N,) f32.
-    Counts and ranks are exact; the weighted sums depend on f32 order. See
-    cluster_stats_plain for the result."""
+                  alpha: float, c: int, k_after: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """Per-slice cluster statistics; labels (N,) int32, x, y (N,) f32,
+    k_after (C,) int32 or None. Counts and ranks are exact; the weighted
+    sums depend on f32 order. See cluster_stats_plain for the result."""
     n = labels.shape[0]
     kernels.check(labels, "labels", torch.int32, (n,))
     kernels.check(x, "x", torch.float32, (n,))
     kernels.check(y, "y", torch.float32, (n,))
-    device = kernels.check_device(labels, x, y)
+    tensors = (labels, x, y)
+    if k_after is not None:
+        kernels.check(k_after, "k_after", torch.int32, (c,))
+        tensors += (k_after,)
+    device = kernels.check_device(*tensors)
     if device < 0:
-        return cluster_stats_plain(labels, x, y, alpha, c)
+        return cluster_stats_plain(labels, x, y, alpha, c, k_after)
     if not 0.0 < alpha < 1.0:
         raise ValueError(f"cluster_stats: alpha={alpha} outside (0, 1)")
     if c > MAX_CLUSTERS:
@@ -106,5 +117,6 @@ def cluster_stats(labels: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     out = torch.empty((c, 5), dtype=torch.float32, device=labels.device)
     if c:
         kernels.launch("cluster_stats", device, labels.data_ptr(), x.data_ptr(),
-                       y.data_ptr(), n, c, float(alpha), out.data_ptr())
+                       y.data_ptr(), n, c, float(alpha),
+                       None if k_after is None else k_after.data_ptr(), out.data_ptr())
     return out

@@ -8,6 +8,10 @@ fixpoint of
 reached by iterating from the valid set. Each round is one (C, C) masked
 reduction, and the loop checks convergence on the host: one device-to-host
 sync per round, rounds = suppression-chain depth + 1.
+
+Immune corners (the tiled corner path, parallel/tiling.py) are corners
+already accepted ahead of every candidate: they suppress the candidates
+their boxes overlap and are themselves neither filtered nor emitted.
 """
 
 from __future__ import annotations
@@ -28,9 +32,13 @@ class NMSResult(NamedTuple):
 
 
 def accept_corners(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
-                   cfg: NMSConfig = NMSConfig()) -> Tuple[torch.Tensor, torch.Tensor]:
+                   cfg: NMSConfig = NMSConfig(), immune_x: torch.Tensor | None = None,
+                   immune_y: torch.Tensor | None = None,
+                   immune_valid: torch.Tensor | None = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy accept mask over candidates in input order: (accepted bool
-    (C,), count int32 ())."""
+    (C,), count int32 ()). Candidates that an immune corner's box overlaps
+    are out from the start."""
     c = x.shape[0]
     reach = 2 * (cfg.box_size // 2)
     xf = x.to(torch.int32)
@@ -41,9 +49,16 @@ def accept_corners(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
     earlier = lane[:, None] > lane[None, :]              # j < i
     sup = overlap & earlier & valid[:, None] & valid[None, :]
 
-    acc = valid
+    base = valid
+    if immune_x is not None:
+        ix, iy = immune_x.to(torch.int32), immune_y.to(torch.int32)
+        hit = (((xf[:, None] - ix[None, :]).abs() <= reach)
+               & ((yf[:, None] - iy[None, :]).abs() <= reach)
+               & immune_valid[None, :]).any(1)
+        base = valid & ~hit
+    acc = base
     while True:
-        new = valid & ~(sup & acc[None, :]).any(1)
+        new = base & ~(sup & acc[None, :]).any(1)
         if torch.equal(new, acc):
             break
         acc = new
@@ -69,11 +84,13 @@ def compact(keep: torch.Tensor, cap: int, *cols: torch.Tensor):
 
 
 def filter_corners(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
-                   cfg: NMSConfig = NMSConfig()) -> NMSResult:
+                   cfg: NMSConfig = NMSConfig(), immune_x: torch.Tensor | None = None,
+                   immune_y: torch.Tensor | None = None,
+                   immune_valid: torch.Tensor | None = None) -> NMSResult:
     """`accept_corners` followed by the stream-order compaction of the
     accepted corners."""
     c = x.shape[0]
-    acc, count = accept_corners(x, y, valid, cfg)
+    acc, count = accept_corners(x, y, valid, cfg, immune_x, immune_y, immune_valid)
     ox, oy, live = compact(acc, c, x.to(torch.int32), y.to(torch.int32))
     lane = torch.arange(c, dtype=torch.int32, device=x.device)
     return NMSResult(ox, oy, torch.where(live, lane, -1), count, acc)

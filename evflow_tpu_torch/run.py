@@ -10,6 +10,7 @@ Usage:
   python -m evflow_tpu_torch.run sampling       --input ev.csv                   # app F
   python -m evflow_tpu_torch.run optics         --input ev.csv [--eps 10]        # app B
   python -m evflow_tpu_torch.run dbscan         --input ev.csv [--eps 20]        # app C
+  python -m evflow_tpu_torch.run temporal       --input ev.csv [--windows 2 --tiles 4 | --exact]
 
 Every subcommand runs on the card (`--device cuda`, the default) unless
 `--device cpu` is given, before or after the subcommand; with no card,
@@ -17,7 +18,9 @@ Every subcommand runs on the card (`--device cuda`, the default) unless
 process group is initialized from the environment (NCCL on the card, Gloo
 on the CPU), each rank takes the card of its LOCAL_RANK, the `--sharded`
 paths split their rows over the ranks, and only rank 0 prints. `temporal`
-waits for the port of the spatio-temporal tiling and exits with an error.
+runs one rank per window and tile (per window with --exact): under
+torchrun the world must be windows x tiles, and outside it only a 1 x 1
+grid runs.
 """
 
 from __future__ import annotations
@@ -295,11 +298,60 @@ def cmd_dbscan(args):
 
 
 def cmd_temporal(args):
-    """Spatio-temporal distributed run (time windows x spatial tiles):
-    not ported yet."""
-    sys.exit("error: temporal is not ported to evflow_tpu_torch yet: it waits "
-             "for the port of parallel/tiling.py and parallel/temporal.py "
-             "(run it with python -m evflow_tpu.run temporal)")
+    """Spatio-temporal distributed run: time windows over the mesh's data
+    axis, spatial tiles over its tile axis, one rank each; per-slice
+    cluster+corner outputs plus the Schur-refined cross-window track chains
+    (parallel/temporal.py). With --exact, the exact engine over windows
+    only."""
+    from .config import DEFAULT
+    from .io import slice_by_count
+    from .parallel import mesh as mesh_mod, temporal
+    cfg = DEFAULT
+    n_windows, n_tiles = args.windows, args.tiles
+    exact = args.exact
+    if exact and n_tiles > 1:
+        print(f"warning: --exact distributes over windows only; "
+              f"--tiles {n_tiles} ignored (the exact engine is sequential "
+              f"per window)", file=sys.stderr)
+    need = n_windows if exact else n_windows * n_tiles
+    have = mesh_mod.world_size()
+    if need != have:
+        sys.exit(f"error: {'windows' if exact else f'grid ({n_windows}x{n_tiles})'}"
+                 f" needs {need} ranks, have {have} (hint: run it under torchrun "
+                 f"--nproc-per-node {need})")
+    slices = slice_by_count(_load(args), cfg.slicing.n_events)
+    dev = args.device
+    if exact:
+        # windows over the data axis only (the engine is sequential per
+        # window), bit for bit the sequential exact run after the warm-up
+        m = mesh_mod.make_data_mesh(n_windows, cfg.parallel)
+        out = temporal.run_temporal_exact(slices, m, n_windows, args.warmup, cfg, device=dev)
+        alive, n = out.alive.cpu().numpy(), out.n.cpu().numpy()
+        for w in range(n_windows):
+            for s in range(alive.shape[1]):
+                big = alive[w, s] & (n[w, s] >= cfg.cluster.min_n)
+                print(f"window {w} slice {s}: clusters={int(big.sum())}")
+        chained = int((out.cluster_chain >= 0).sum())
+        print(f"cross-window cluster chains: {chained} reported slots")
+        return
+    grid = mesh_mod.make_grid_mesh(n_windows, n_tiles, cfg.parallel)
+    out = temporal.run_temporal(slices, grid, n_windows, n_tiles, args.warmup, cfg,
+                                device=dev)
+    rep, ncor = out.cl_reported.cpu().numpy(), out.num_corners.cpu().numpy()
+    act = out.track_active.cpu().numpy()
+    for w in range(n_windows):
+        for s in range(ncor.shape[1]):
+            print(f"window {w} slice {s}: clusters={int(rep[w, s].sum())} "
+                  f"corners={int(ncor[w, s])} tracks={int(act[w, s].sum())}")
+    r = [a.cpu().numpy() for a in out.refined]
+    valid, n_win, n_obs, _, bpos, bok = r
+    ks = np.where(valid)[0]
+    print(f"refined track chains: {len(ks)}")
+    for k in ks:
+        pts = " -> ".join(f"({bpos[k, j][0]:.1f},{bpos[k, j][1]:.1f})"
+                          for j in range(bok.shape[1]) if bok[k, j])
+        print(f"  chain {int(k)}: windows={int(n_win[k])} "
+              f"obs={int(n_obs[k])} boundary {pts}")
 
 
 def _device_arg(p, default):

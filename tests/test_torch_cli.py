@@ -218,9 +218,13 @@ def test_device_flag_defaults_to_cuda():
 
 
 def test_temporal_exits_with_its_message(small_stream):
-    with pytest.raises(SystemExit) as e:
-        main(["temporal", "--input", small_stream] + CPU)
-    assert "temporal is not ported" in str(e.value.code)
+    """Outside torchrun there is one rank: a larger grid (the default 2 x 4)
+    exits naming the ranks it needs, as the JAX CLI names the devices."""
+    for argv, msg in ((["temporal"], "grid (2x4) needs 8 ranks, have 1"),
+                      (["temporal", "--exact", "--windows", "3"], "windows needs 3 ranks, have 1")):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--input", small_stream] + CPU)
+        assert msg in str(e.value.code), e.value.code
 
 
 def _free_port() -> int:

@@ -602,3 +602,61 @@ def test_dedup_batched_on_card_matches_cpu(cuda, exact):
     got = hash_dedup.dedup_batched(x.to(cuda), y.to(cuda), v.to(cuda), cfg)
     want = hash_dedup.dedup_batched(x, y, v, cfg)
     interop.assert_trees_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,c,kind", [(16384, 128, "random"), (16384, 128, "one"),
+                                      (65536, 4096, "random"), (1000, 1, "one")])
+def test_cluster_stats_k_after_matches_plain(cuda, n, c, kind):
+    """The later tiles' counts (k_after) extend every exponent: small ones
+    keep the newest members' weights above the clamp at 80, large ones
+    (2^30, past any rank) reach it without overflow, zeros give the bits of
+    no k_after; counts stay this call's own."""
+    labels, x, y = _stats_inputs(n, c, kind, cuda)
+    rng = np.random.default_rng(c)
+    for k_after in (rng.integers(0, 60, c), np.full(c, 1 << 30), np.zeros(c)):
+        k_after = torch.as_tensor(k_after.astype(np.int32), device=cuda)
+        before = kernels.LAUNCHES["cluster_stats"]
+        got = ck.cluster_stats(labels, x, y, 0.3, c, k_after)
+        _stats_close(got, ck.cluster_stats_plain(labels, x, y, 0.3, c, k_after))
+        assert kernels.LAUNCHES["cluster_stats"] == before + 1
+    assert torch.equal(got, ck.cluster_stats(labels, x, y, 0.3, c))
+
+
+def test_tiled_cluster_and_corner_steps_on_card_match_cpu(cuda):
+    """One rank of the tiled steps (a tile mesh of one: k_after of zeros
+    passed to the kernel, no collective) over 6 DEFAULT slices on the card
+    against the same steps on the CPU: cluster floats within f32 order,
+    everything else equal."""
+    from evflow_tpu_torch.parallel import mesh, tiling
+    cfg = DEFAULT
+    stream = synthetic.moving_blob_stream(
+        num_slices=6, events_per_slice=cfg.slicing.n_events,
+        blob_centers=((200.0, 200.0), (900.0, 500.0)), velocities=((30.0, 10.0), (-20.0, 15.0)),
+        sigma=12.0, seed=4)
+    sl = slice_by_count(stream, cfg.slicing.n_events)
+    t = (sl.t - sl.t[0, 0]).astype(np.int32)
+    m = mesh.make_tile_mesh(1)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        step = tiling.make_tiled_cluster_flow_step(m, cfg)
+        cstep = tiling.make_tiled_corner_step(m, 1, cfg)
+        st = fastcluster.init_state(cfg.cluster, device=dev)
+        co = tiling.init_tiled_corner_state(m, 1, cfg, device=dev)
+        outs = []
+        before = dict(kernels.LAUNCHES)
+        for s in range(sl.num_slices):
+            x, y, tt, v = (torch.as_tensor(a[s], device=dev)
+                           for a in (sl.x, sl.y, t, sl.valid_mask()))
+            st, out, uc, rc = step(st, x, y, v)
+            *co, cout = cstep(*co, x, y, tt, v)
+            outs.append(interop.to_leaves((st, out, uc, rc, co, cout)))
+        runs[dev.type] = outs
+        if dev.type == "cuda":
+            for name in ("assign_manhattan", "cluster_stats"):
+                assert kernels.LAUNCHES[name] == before[name] + sl.num_slices
+    for s, (got, want) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        for a, b in zip(got, want):
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-3, err_msg=f"slice {s}")
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"slice {s}")

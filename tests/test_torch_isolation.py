@@ -25,7 +25,7 @@ from evflow_tpu_torch import config, fidelity, io, run
 from evflow_tpu_torch.io import evt2, evt3
 from evflow_tpu_torch.models import aeclustering, dbscan, fastcluster, optics, pipeline, tracker
 from evflow_tpu_torch.ops import sae
-from evflow_tpu_torch.parallel import batch
+from evflow_tpu_torch.parallel import batch, mesh, temporal, tiling
 from evflow_tpu_torch.utils import metrics, pcd, plots, ppm
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -153,6 +153,16 @@ ENTRY_POINTS = {
     "batch.kmeans_sharded": lambda: batch.kmeans_sharded(
         np.zeros((4, 2), np.float32), np.zeros((2, 2), np.float32)),
     "run.main": lambda: run.main(["kmeans", "--n", "16"]),
+    "tiling.init_tiled_corner_state": lambda: tiling.init_tiled_corner_state(
+        mesh.make_tile_mesh(1), 1),
+    "temporal.init_blocks": lambda: temporal.init_blocks(8),
+    "temporal.run_temporal": lambda: temporal.run_temporal(
+        io.slice_by_count(io.synthetic.moving_blob_stream(num_slices=1, events_per_slice=2048,
+                                                          seed=1), 2048),
+        mesh.make_grid_mesh(1, 1), 1, 1, 0),
+    "run.main temporal": lambda: run.main(["temporal", "--windows", "1", "--tiles", "1",
+                                           "--input", str(ROOT / "tests" / "data" /
+                                                          "event_raw_data8.csv")]),
 }
 
 
@@ -175,7 +185,9 @@ def test_default_call_without_a_card_raises(name):
                                 optics.compute_neighbors_cellpair,
                                 optics.compute_reachability_dists, optics.neighbor_table,
                                 batch.compute_neighbors_sharded, batch.dbscan_sharded,
-                                batch.kmeans_sharded])
+                                batch.kmeans_sharded, tiling.init_tiled_corner_state,
+                                temporal.init_blocks, temporal.run_temporal,
+                                temporal.run_temporal_exact])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
