@@ -39,6 +39,7 @@ from ..config import ClusterConfig, SensorConfig
 from ..ops import cluster_kernels
 from ..ops.cluster_kernels import log1m as _log1m
 from ..parallel import mesh as mesh_mod
+from ..utils.profiling import spanned
 
 _BIG = 2**31 - 1
 
@@ -164,6 +165,7 @@ def update_slice_distributed(state: FastState, x: torch.Tensor, y: torch.Tensor,
     return _update_slice_impl(state, x, y, valid, cfg, sensor, grid_cells, axis)
 
 
+@spanned("fastcluster")
 def _update_slice_impl(state: FastState, x, y, valid, cfg: ClusterConfig,
                        sensor: SensorConfig, grid_cells: int,
                        axis: Optional[mesh_mod.Axis]) -> Tuple[FastState, SliceOutput]:

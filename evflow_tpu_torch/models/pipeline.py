@@ -16,6 +16,8 @@
 - `full_scan`: both chains per slice over a slice sequence — the main path.
 
 The JAX package's `lax.scan` over slices is an eager Python loop here.
+Each iteration of a loop over slices is a `slice` span (`utils/profiling`),
+and the modules' spans nest under it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..io.events import EventStream
 from ..io.slicing import slice_by_count, slice_by_time
 
 from ..ops import efast, hash_dedup, nms as nms_ops, sae as sae_ops
+from ..utils.profiling import span, spanned
 from . import aeclustering, aeclustering_kernel, fastcluster, tracker as tracker_mod
 
 
@@ -90,7 +93,8 @@ def cluster_flow_scan(state, xs, ys, valids, cfg: EngineConfig = DEFAULT):
     """All slices in order: (final state, stacked ClusterFlowOutput)."""
     outs = []
     for s in range(xs.shape[0]):
-        state, out = cluster_flow_step(state, xs[s], ys[s], valids[s], cfg)
+        with span("slice"):
+            state, out = cluster_flow_step(state, xs[s], ys[s], valids[s], cfg)
         outs.append(out)
     return state, _stack(outs)
 
@@ -130,8 +134,9 @@ class ClusterFlowPipeline:
         xs, ys, vs = _as_tensors(self.device, slices.x, slices.y, slices.valid_mask())
         outs = []
         for s in range(slices.num_slices):
-            state, out = cluster_flow_step(state, xs[s], ys[s], vs[s], cfg)
-            outs.append(_to_cpu(out))
+            with span("slice"):
+                state, out = cluster_flow_step(state, xs[s], ys[s], vs[s], cfg)
+                outs.append(_to_cpu(out))
         self.final_state = state
         return outs
 
@@ -178,13 +183,16 @@ def cluster_flow_step_exact(state: aeclustering.AEState, x: torch.Tensor,
     own tests, so the port has no blocked form (exact_pallas_interpret,
     a JAX interpret-mode switch, likewise changes nothing here)."""
     lanes, new_cum = exact_engine_lanes(x, y, t, valid, cfg, cum_unique)
-    if cfg.cluster.exact_pallas and cfg.cluster.kappa == 0:
-        state = aeclustering_kernel.update_slice_kernel(state, *lanes, cfg.cluster)
-    else:
-        state = aeclustering.update_slice(state, *lanes, cfg.cluster)
-    return state, aeclustering.snapshot(state, cfg.cluster), new_cum
+    with span("exact_engine"):
+        if cfg.cluster.exact_pallas and cfg.cluster.kappa == 0:
+            state = aeclustering_kernel.update_slice_kernel(state, *lanes, cfg.cluster)
+        else:
+            state = aeclustering.update_slice(state, *lanes, cfg.cluster)
+        view = aeclustering.snapshot(state, cfg.cluster)
+    return state, view, new_cum
 
 
+@spanned("dedup")
 def exact_engine_lanes(x, y, t, valid, cfg: EngineConfig = DEFAULT, cum_unique=None):
     """The exact engine's input for one slice, ((x, y, t, p, valid) lanes,
     new_cum_unique): the unique coordinates in stream order, cut at
@@ -218,19 +226,20 @@ def cluster_flow_scan_exact(state, xs, ys, ts, valids, cfg: EngineConfig = DEFAU
     ae_state, cum, prev_cid, prev_cent = state
     outs = []
     for s in range(xs.shape[0]):
-        ae_state, view, new_cum = cluster_flow_step_exact(
-            ae_state, xs[s], ys[s], ts[s], valids[s], cfg, cum)
-        uniq = new_cum - cum
-        reported = view.alive & (view.n >= min_n)
-        same = reported & (prev_cid == view.cid) & (prev_cid >= 0)
-        flow = torch.where(same[:, None], (view.centroid - prev_cent) * extrap, 0.0)
-        prev_cent = torch.where(reported[:, None], view.centroid, prev_cent)
-        prev_cid = torch.where(reported, view.cid,
-                               torch.where(view.alive, prev_cid, -1)).to(torch.int32)
-        outs.append(ClusterFlowOutput(
-            unique_count=uniq, repeated_count=valids[s].sum(dtype=torch.int32) - uniq,
-            reported=reported, cid=view.cid, n=view.n, centroid=view.centroid,
-            flow=flow.to(torch.float32)))
+        with span("slice"):
+            ae_state, view, new_cum = cluster_flow_step_exact(
+                ae_state, xs[s], ys[s], ts[s], valids[s], cfg, cum)
+            uniq = new_cum - cum
+            reported = view.alive & (view.n >= min_n)
+            same = reported & (prev_cid == view.cid) & (prev_cid >= 0)
+            flow = torch.where(same[:, None], (view.centroid - prev_cent) * extrap, 0.0)
+            prev_cent = torch.where(reported[:, None], view.centroid, prev_cent)
+            prev_cid = torch.where(reported, view.cid,
+                                   torch.where(view.alive, prev_cid, -1)).to(torch.int32)
+            outs.append(ClusterFlowOutput(
+                unique_count=uniq, repeated_count=valids[s].sum(dtype=torch.int32) - uniq,
+                reported=reported, cid=view.cid, n=view.n, centroid=view.centroid,
+                flow=flow.to(torch.float32)))
         cum = new_cum
     return (ae_state, cum, prev_cid, prev_cent), _stack(outs)
 
@@ -274,8 +283,9 @@ def _corners_to_tracks(corner_mask, x, y, state: CornerTrackState, new_sae,
     """Compact the detected corners in stream order to the NMS capacity,
     suppress, and advance the tracker on the accepted candidate lanes."""
     n_corners = corner_mask.sum(dtype=torch.int32)
-    cx, cy, cvalid = nms_ops.compact(corner_mask, cfg.nms.max_corners, x, y)
-    accepted, n_filtered = nms_ops.accept_corners(cx, cy, cvalid, cfg.nms)
+    with span("nms"):
+        cx, cy, cvalid = nms_ops.compact(corner_mask, cfg.nms.max_corners, x, y)
+        accepted, n_filtered = nms_ops.accept_corners(cx, cy, cvalid, cfg.nms)
     tracks, groups = tracker_mod.update(
         state.tracks, cx.to(torch.float32), cy.to(torch.float32), accepted,
         cfg.tracker)
@@ -292,6 +302,7 @@ def _corners_to_tracks(corner_mask, x, y, state: CornerTrackState, new_sae,
                             slice_idx=state.slice_idx + 1), out
 
 
+@spanned("candidates")
 def _representative_candidates(x, y, valid, m, cfg: EngineConfig):
     """One representative lane per touched pixel — the pixel's LAST event in
     stream order, which carries its newest timestamp — compacted in stream
@@ -400,12 +411,13 @@ def stack_detect(sae: torch.Tensor, x, y, t, valid, cfg: EngineConfig):
     sub = torch.arange(q, dtype=torch.int64, device=x.device)[:, None]
     yi, oky = sae_ops.drop_index(yr.long(), h)
     xi, okx = sae_ops.drop_index(xr.long(), w)
-    flat = torch.where(vr & oky & okx, (sub * h + yi) * w + xi, q * h * w)
-    planes = torch.zeros(q * h * w + 1, dtype=sae.dtype, device=sae.device).scatter_reduce(
-        0, flat.reshape(-1), tr.to(sae.dtype).reshape(-1), "amax")[:q * h * w].view(q, h, w)
-    torch.maximum(planes[0], sae, out=planes[0])
-    for k in range(1, q):
-        torch.maximum(planes[k], planes[k - 1], out=planes[k])
+    with span("sae"):
+        flat = torch.where(vr & oky & okx, (sub * h + yi) * w + xi, q * h * w)
+        planes = torch.zeros(q * h * w + 1, dtype=sae.dtype, device=sae.device).scatter_reduce(
+            0, flat.reshape(-1), tr.to(sae.dtype).reshape(-1), "amax")[:q * h * w].view(q, h, w)
+        torch.maximum(planes[0], sae, out=planes[0])
+        for k in range(1, q):
+            torch.maximum(planes[k], planes[k - 1], out=planes[k])
     cands = [_representative_candidates(xr[k], yr[k], vr[k], m_sub, cfg) for k in range(q)]
     masks = [efast.detect_corners(planes[k], cx, cy, cv, cfg.efast, cfg.sensor)
              for k, (cx, cy, cv, _) in enumerate(cands)]
@@ -486,7 +498,8 @@ def corner_track_scan(state, xs, ys, ts, valids, cfg: EngineConfig = DEFAULT):
     """All slices in order: (final state, stacked CornerTrackOutput)."""
     outs = []
     for s in range(xs.shape[0]):
-        state, out = corner_track_step(state, xs[s], ys[s], ts[s], valids[s], cfg)
+        with span("slice"):
+            state, out = corner_track_step(state, xs[s], ys[s], ts[s], valids[s], cfg)
         outs.append(out)
     return state, _stack(outs)
 
@@ -513,8 +526,9 @@ class CornerTrackPipeline:
                                      slices.valid_mask())
         outs = []
         for s in range(slices.num_slices):
-            state, out = corner_track_step(state, xs[s], ys[s], ts[s], vs[s], cfg)
-            outs.append(_to_cpu(out))
+            with span("slice"):
+                state, out = corner_track_step(state, xs[s], ys[s], ts[s], vs[s], cfg)
+                outs.append(_to_cpu(out))
         self.final_state = state
         self.t0 = t0
         return outs
@@ -530,9 +544,10 @@ def full_scan(cl_state, co_state, xs, ys, ts, valids, cfg: EngineConfig = DEFAUL
     CornerTrackOutput)), the shape of the JAX package's full_scan."""
     cl_outs, co_outs = [], []
     for s in range(xs.shape[0]):
-        cl_state, cl_out = cluster_flow_step(cl_state, xs[s], ys[s], valids[s], cfg)
-        co_state, co_out = corner_track_step(co_state, xs[s], ys[s], ts[s],
-                                             valids[s], cfg)
+        with span("slice"):
+            cl_state, cl_out = cluster_flow_step(cl_state, xs[s], ys[s], valids[s], cfg)
+            co_state, co_out = corner_track_step(co_state, xs[s], ys[s], ts[s],
+                                                 valids[s], cfg)
         cl_outs.append(cl_out)
         co_outs.append(co_out)
     return (cl_state, co_state), (_stack(cl_outs), _stack(co_outs))

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import TrackerConfig
+from ..utils.profiling import span, spanned
 
 _BIG = 2**31 - 1
 _F32MAX = 3.0e38
@@ -133,28 +134,29 @@ def _associate(dist_td, reach, eligible, seqv, det_valid, max_distance):
     det_iota = torch.arange(d, dtype=torch.int32, device=dist_td.device)
     match_idx = torch.full((t,), -1, dtype=torch.int32, device=dist_td.device)
     while True:
-        matched_t = match_idx >= 0
-        det_taken = ((match_idx[:, None] == det_iota[None, :])
-                     & matched_t[:, None]).any(0)
-        open_t = eligible & ~matched_t
-        dmask = torch.where((det_valid & ~det_taken)[None, :], dist_td, _F32MAX)
-        best = dmask.argmin(1).to(torch.int32)
-        best_dist = dmask.amin(1)
-        propose = open_t & (best_dist < max_distance)
-        pseq = torch.where(propose, seqv, _BIG)
-        onehot = propose[:, None] & (best[:, None] == det_iota[None, :])   # (T, D)
-        # reach rule: commit if no earlier-seq OPEN track can reach best
-        minseq_reach = torch.where(open_t[:, None] & reach, seqv[:, None],
-                                   _BIG).amin(0)                         # (D,)
-        reach_ok = ~(onehot & (minseq_reach[None, :] < pseq[:, None])).any(1)
-        # prefix rule: the seq-prefix of proposers with distinct proposals
-        mindup = torch.where(onehot, pseq[:, None], _BIG).amin(0)       # (D,)
-        dup = (onehot & (mindup[None, :] < pseq[:, None])).any(1)
-        first_dup = torch.where(dup, pseq, _BIG).amin()
-        commit = propose & ((pseq < first_dup) | reach_ok)
-        match_idx = torch.where(commit, best, match_idx)
-        if not bool(commit.any()):
-            return match_idx
+        with span("tracker.associate.round"):
+            matched_t = match_idx >= 0
+            det_taken = ((match_idx[:, None] == det_iota[None, :])
+                         & matched_t[:, None]).any(0)
+            open_t = eligible & ~matched_t
+            dmask = torch.where((det_valid & ~det_taken)[None, :], dist_td, _F32MAX)
+            best = dmask.argmin(1).to(torch.int32)
+            best_dist = dmask.amin(1)
+            propose = open_t & (best_dist < max_distance)
+            pseq = torch.where(propose, seqv, _BIG)
+            onehot = propose[:, None] & (best[:, None] == det_iota[None, :])   # (T, D)
+            # reach rule: commit if no earlier-seq OPEN track can reach best
+            minseq_reach = torch.where(open_t[:, None] & reach, seqv[:, None],
+                                       _BIG).amin(0)                         # (D,)
+            reach_ok = ~(onehot & (minseq_reach[None, :] < pseq[:, None])).any(1)
+            # prefix rule: the seq-prefix of proposers with distinct proposals
+            mindup = torch.where(onehot, pseq[:, None], _BIG).amin(0)       # (D,)
+            dup = (onehot & (mindup[None, :] < pseq[:, None])).any(1)
+            first_dup = torch.where(dup, pseq, _BIG).amin()
+            commit = propose & ((pseq < first_dup) | reach_ok)
+            match_idx = torch.where(commit, best, match_idx)
+            if not bool(commit.any()):
+                return match_idx
 
 
 def _group_seeds(detected, within, seqd):
@@ -162,10 +164,11 @@ def _group_seeds(detected, within, seqd):
     seed lies within the group radius."""
     is_seed = detected
     while True:
-        blocked = (within & is_seed[None, :] & (seqd[None, :] < seqd[:, None])).any(1)
-        new = detected & ~blocked
-        if torch.equal(new, is_seed):
-            return new
+        with span("tracker.group_seeds.round"):
+            blocked = (within & is_seed[None, :] & (seqd[None, :] < seqd[:, None])).any(1)
+            new = detected & ~blocked
+            if torch.equal(new, is_seed):
+                return new
         is_seed = new
 
 
@@ -175,6 +178,7 @@ def _scatter_max(values, segment_ids, num_segments, fill):
     return init.scatter_reduce(0, segment_ids.long(), values, "amax")
 
 
+@spanned("tracker")
 def update(state: TrackState, det_x: torch.Tensor, det_y: torch.Tensor,
            det_valid: torch.Tensor, cfg: TrackerConfig = TrackerConfig()
            ) -> Tuple[TrackState, GroupView]:

@@ -29,6 +29,7 @@ import torch
 from ..config import EFastConfig, SensorConfig
 
 from .. import kernels
+from ..utils.profiling import spanned
 
 # (dy, dx) in group_track order: time_surface.at(y + c[i][0], x + c[i][1]).
 CIRCLE3 = np.array(
@@ -240,6 +241,7 @@ def tile_activity(ev_y: torch.Tensor, ev_valid: torch.Tensor, h: int, w: int,
     return (act > 0).reshape(nb, nwt)
 
 
+@spanned("efast")
 def detect_corners_dense(sae, ev_y, ev_valid, x, y, valid,
                          cfg: EFastConfig = EFastConfig(),
                          sensor: SensorConfig = SensorConfig(),
@@ -258,6 +260,7 @@ def detect_corners_dense(sae, ev_y, ev_valid, x, y, valid,
     return mask[y.clamp(0, h - 1), x.clamp(0, w - 1)] & valid
 
 
+@spanned("efast")
 def detect_corners(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                    valid: torch.Tensor, cfg: EFastConfig = EFastConfig(),
                    sensor: SensorConfig = SensorConfig()) -> torch.Tensor:

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import DedupConfig, SensorConfig
+from ..utils.profiling import spanned
 from .segment import segment_counts
 
 
@@ -94,6 +95,7 @@ def _compact(x, y, unique_mask):
     return ux, uy
 
 
+@spanned("dedup")
 def dedup_mask(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
                cfg: DedupConfig = DedupConfig(),
                sensor: SensorConfig = SensorConfig()) -> DedupMask:

@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import NMSConfig
+from ..utils.profiling import span, spanned
 
 
 class NMSResult(NamedTuple):
@@ -58,9 +59,10 @@ def accept_corners(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
         base = valid & ~hit
     acc = base
     while True:
-        new = base & ~(sup & acc[None, :]).any(1)
-        if torch.equal(new, acc):
-            break
+        with span("nms.round"):
+            new = base & ~(sup & acc[None, :]).any(1)
+            if torch.equal(new, acc):
+                break
         acc = new
     return acc, acc.sum(dtype=torch.int32)
 
@@ -83,6 +85,7 @@ def compact(keep: torch.Tensor, cap: int, *cols: torch.Tensor):
     return (*out, valid)
 
 
+@spanned("nms")
 def filter_corners(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
                    cfg: NMSConfig = NMSConfig(), immune_x: torch.Tensor | None = None,
                    immune_y: torch.Tensor | None = None,

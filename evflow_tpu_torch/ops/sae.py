@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from ..config import SensorConfig
+from ..utils.profiling import spanned
 
 
 def init_sae(sensor: SensorConfig = SensorConfig(), device="cuda",
@@ -35,6 +36,7 @@ def _lowest(dtype: torch.dtype):
     return torch.iinfo(dtype).min
 
 
+@spanned("sae")
 def update_sae(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Scatter-max one slice of events into the surface (a new tensor).

@@ -70,6 +70,7 @@ from ..ops import hash_dedup
 from ..ops.segment import masked_segment_sum
 from . import mesh as mesh_mod
 from . import tiling
+from ..utils.profiling import span
 
 _BIG = 3.0e38
 
@@ -329,13 +330,14 @@ def make_temporal_exact_pipeline(mesh: mesh_mod.Mesh, n_windows: int, n_emit: in
         first_ok = torch.zeros(ccap, dtype=torch.bool, device=dev)
         streams = [[] for _ in range(6)]
         for s in range(x.shape[0]):
-            e_em = bool(emit[s])
-            state, view, cum = pipeline_mod.cluster_flow_step_exact(
-                state, x[s], y[s], t[s], valid[s], cfg, cum)
-            dig = aeclustering.membership_digest(state, cfg.cluster)
-            new_first = view.alive & ~first_ok & e_em
-            first_cent = torch.where(new_first[:, None], view.centroid, first_cent)
-            first_ok = first_ok | new_first
+            with span("slice"):
+                e_em = bool(emit[s])
+                state, view, cum = pipeline_mod.cluster_flow_step_exact(
+                    state, x[s], y[s], t[s], valid[s], cfg, cum)
+                dig = aeclustering.membership_digest(state, cfg.cluster)
+                new_first = view.alive & ~first_ok & e_em
+                first_cent = torch.where(new_first[:, None], view.centroid, first_cent)
+                first_ok = first_ok | new_first
             for out, v in zip(streams, (view.alive & e_em, view.cid, view.n, view.mu,
                                         view.centroid, dig)):
                 out.append(v)
@@ -544,19 +546,20 @@ def make_temporal_pipeline(mesh: mesh_mod.Mesh, n_windows: int, n_tiles: int,
         us = _window_u(emit, n_emit, dev)
         streams = [[] for _ in range(10)]
         for s in range(x.shape[0]):
-            e_em = bool(emit[s])
-            # cluster path: per-tile dedup -> distributed slice update
-            ded = hash_dedup.dedup_mask(x[s], y[s], valid[s], cfg.dedup, cfg.sensor)
-            cl, cl_out = fastcluster.update_slice_distributed(
-                cl, x[s], y[s], ded.unique_mask, tile_ax, cfg.cluster, cfg.sensor)
-            # corner path: SAE slab + halos -> eFAST -> NMS -> tracker
-            slab, tracks, co_out = tiling.corner_tile_body(
-                slab, tracks, int(armed[s]), x[s], y[s], t[s], valid[s], tile_ax,
-                tile_w, cfg)
-            blocks = _blocks_update(blocks, tracks, us[s], e_em)
-            new_first = cl_out.reported & ~first_ok & e_em
-            first_cent = torch.where(new_first[:, None], cl_out.centroid, first_cent)
-            first_ok = first_ok | new_first
+            with span("slice"):
+                e_em = bool(emit[s])
+                # cluster path: per-tile dedup -> distributed slice update
+                ded = hash_dedup.dedup_mask(x[s], y[s], valid[s], cfg.dedup, cfg.sensor)
+                cl, cl_out = fastcluster.update_slice_distributed(
+                    cl, x[s], y[s], ded.unique_mask, tile_ax, cfg.cluster, cfg.sensor)
+                # corner path: SAE slab + halos -> eFAST -> NMS -> tracker
+                slab, tracks, co_out = tiling.corner_tile_body(
+                    slab, tracks, int(armed[s]), x[s], y[s], t[s], valid[s], tile_ax,
+                    tile_w, cfg)
+                blocks = _blocks_update(blocks, tracks, us[s], e_em)
+                new_first = cl_out.reported & ~first_ok & e_em
+                first_cent = torch.where(new_first[:, None], cl_out.centroid, first_cent)
+                first_ok = first_ok | new_first
             for out, v in zip(streams, (
                     cl_out.reported & e_em, cl_out.cid, cl_out.n, cl_out.centroid,
                     cl_out.flow, co_out.num_corners, co_out.track_active & e_em,

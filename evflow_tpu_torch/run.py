@@ -21,6 +21,12 @@ paths split their rows over the ranks, and only rank 0 prints. `temporal`
 runs one rank per window and tile (per window with --exact): under
 torchrun the world must be windows x tiles, and outside it only a 1 x 1
 grid runs.
+
+The per-slice subcommands (cluster-flow, track-estimate, corner-track,
+temporal) take `--trace DIR`: the run is recorded with torch.profiler and
+written to DIR/trace.json as a Chrome trace, with the program's spans (each
+slice, module and fixpoint round, `utils/profiling.py`) on the card's clock.
+Under torchrun rank 0 writes DIR/trace.json and rank r DIR/rank<r>/trace.json.
 """
 
 from __future__ import annotations
@@ -386,7 +392,14 @@ def parser() -> argparse.ArgumentParser:
                             "to an unbroken run")
         return p
 
-    p = add_ckpt(add("cluster-flow", cmd_cluster_flow))
+    def add_trace(p):
+        p.add_argument("--trace", default="", metavar="DIR",
+                       help="record the run with torch.profiler and write "
+                            "DIR/trace.json (Chrome trace), with a span per "
+                            "slice, module and fixpoint round")
+        return p
+
+    p = add_trace(add_ckpt(add("cluster-flow", cmd_cluster_flow)))
     p.add_argument("--exact", action="store_true",
                    help="bit-parity per-event engine (AEClustering.cpp:47-118 "
                         "semantics) instead of the slice-vectorized fast path")
@@ -394,8 +407,8 @@ def parser() -> argparse.ArgumentParser:
                    help="with --exact: reproduce the reference's fabricated "
                         "uniqueCount/1000 clock (accel …store.cpp:439)")
     add("async-cluster", cmd_async_cluster, decimate=256)
-    add("track-estimate", cmd_track_estimate, decimate=512)
-    add_ckpt(add("corner-track", cmd_corner_track))
+    add_trace(add("track-estimate", cmd_track_estimate, decimate=512))
+    add_trace(add_ckpt(add("corner-track", cmd_corner_track)))
     p = sub.add_parser("kmeans", help=cmd_kmeans.__doc__)
     _device_arg(p, argparse.SUPPRESS)
     p.add_argument("--sharded", action="store_true",
@@ -445,7 +458,7 @@ def parser() -> argparse.ArgumentParser:
                    help="voxel-grid leaf size for .pcd inputs (reference: 0.01)")
     p.add_argument("--remove-plane", action="store_true")
     p.add_argument("--plane-threshold", type=float, default=0.02)
-    p = add("temporal", cmd_temporal)
+    p = add_trace(add("temporal", cmd_temporal))
     p.add_argument("--windows", type=int, default=2,
                    help="time windows (data-axis shards)")
     p.add_argument("--tiles", type=int, default=4,
@@ -485,7 +498,12 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("error: --device cuda requested but no CUDA device is "
                  "available (pass --device cpu to run on the CPU)")
-    with _process_group(args):
+    with _process_group(args), contextlib.ExitStack() as stack:
+        if getattr(args, "trace", ""):
+            from .utils import profiling
+            rank = int(os.environ.get("RANK", "0"))
+            d = os.path.join(args.trace, f"rank{rank}") if rank else args.trace
+            stack.enter_context(profiling.trace(d))
         args.fn(args)
 
 

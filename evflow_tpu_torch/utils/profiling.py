@@ -1,65 +1,48 @@
-"""Profiling & observability (counterpart of evflow_tpu/utils/profiling.py).
+"""The port's span API (counterpart of evflow_tpu/utils/profiling.py).
 
-The reference's three ad-hoc mechanisms become:
-  - Stopwatch (optics/Stopwatch.hpp)            -> Stopwatch (perf_counter laps)
-  - OpenCL event profiling (`Total time = ns`)  -> stage_timer, a
-    torch.profiler span (`record_function`) around a wall-clock timer
-  - per-slice events/s printf counters          -> ThroughputMeter
-`trace` records CPU and CUDA activity with torch.profiler and writes a
-Chrome trace (open it in chrome://tracing or Perfetto).
+`span(name)`, or the decorator `spanned(name)`, marks a stretch of the
+program's host work: the whole of a slice, a module's call (dedup,
+fastcluster, sae, candidates, efast, nms, tracker, exact_engine), or one
+round of a host-checked fixpoint (`nms.round`, `tracker.associate.round`,
+`tracker.group_seeds.round`), so the count of round spans is the round
+count. While a `torch.profiler` session records, a span is a
+`record_function` range and lands in the same trace as the CUDA kernels,
+on the same clock; otherwise it is one shared no-op context. It adds no
+device sync and reads no tensor.
+
+`trace(log_dir)` records CPU (and, with a card, CUDA) activity over a block
+and writes it as a Chrome trace (open it in chrome://tracing or Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import functools
 import os
-import time
-from typing import Dict, List, Optional
 
 import torch
 
-
-class Stopwatch:
-    """restart/lap/elapsed in seconds (Stopwatch.hpp:13-60)."""
-
-    def __init__(self):
-        self.restart()
-
-    def restart(self) -> None:
-        self._start = time.perf_counter()
-        self._laps: List[float] = []
-        self._last = self._start
-
-    def lap(self) -> float:
-        now = time.perf_counter()
-        d = now - self._last
-        self._laps.append(d)
-        self._last = now
-        return d
-
-    def elapsed(self) -> float:
-        return time.perf_counter() - self._start
-
-    def elapsed_laps(self) -> List[float]:
-        return list(self._laps)
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
 
 
-@contextlib.contextmanager
-def stage_timer(name: str, sink: Optional[Dict[str, float]] = None,
-                sync: bool = False):
-    """Wall-time a pipeline stage, as a named span in torch.profiler traces
-    too. The card runs its work asynchronously: with `sync` the timer ends
-    after torch.cuda.synchronize(), so the stage's queued card work is in
-    its time (where a card is present)."""
-    with torch.profiler.record_function(name):
-        t0 = time.perf_counter()
-        yield
-        if sync and torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    if sink is not None:
-        sink[name] = sink.get(name, 0.0) + dt
+def span(name: str):
+    """A profiler range named `name` while a profiler records, else the
+    shared no-op context."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 @contextlib.contextmanager
@@ -73,28 +56,3 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class ThroughputMeter:
-    """events/s counter — the engine's first-class metric."""
-
-    def __init__(self):
-        self.events = 0
-        self.slices = 0
-        self._sw = Stopwatch()
-
-    def add_slice(self, n_events: int) -> None:
-        self.events += int(n_events)
-        self.slices += 1
-
-    @property
-    def events_per_s(self) -> float:
-        dt = self._sw.elapsed()
-        return self.events / dt if dt > 0 else 0.0
-
-    def report(self) -> str:
-        return json.dumps({
-            "events": self.events, "slices": self.slices,
-            "elapsed_s": round(self._sw.elapsed(), 4),
-            "events_per_s": round(self.events_per_s, 1),
-        })

@@ -10,6 +10,7 @@ for bit). `Total time` lines are left out. Frame PPMs are compared byte
 for byte.
 """
 
+import json
 import os
 import re
 import socket
@@ -129,6 +130,38 @@ def test_cli_track_estimate(small_stream, capsys):
 
 def test_cli_corner_track(small_stream, capsys):
     assert "corners=" in _run(main, ["corner-track", "--input", small_stream] + CPU, capsys)
+
+
+TEMPORAL_1X1 = ["temporal", "--windows", "1", "--tiles", "1", "--warmup", "2"]
+TRACED = {
+    # argv, slices run per slice printed beyond it (temporal's warm-up),
+    # spans the trace must hold besides `slice`
+    "cluster-flow": (["cluster-flow"], 0, {"dedup", "fastcluster"}),
+    "corner-track": (["corner-track"], 0, {"sae", "efast", "nms", "tracker"}),
+    "temporal": (TEMPORAL_1X1, 2, {"dedup", "fastcluster", "sae", "efast", "nms",
+                                   "nms.round", "tracker"}),
+    "temporal-exact": (TEMPORAL_1X1 + ["--exact"], 2, {"dedup", "exact_engine"}),
+}
+
+
+@pytest.mark.parametrize("case", TRACED)
+def test_cli_trace_writes_slice_spans(case, small_stream, capsys, tmp_path):
+    """`--trace DIR` writes DIR/trace.json with one `slice` span per slice
+    run (temporal also runs its warm-up slices), the spans of the modules
+    that the run enters, and prints what the untraced run prints."""
+    argv, warm, spans = TRACED[case]
+    argv = argv + ["--input", small_stream] + CPU
+    plain = _run(main, argv, capsys)
+    d = tmp_path / "trace"
+    out = _run(main, argv + ["--trace", str(d)], capsys)
+    assert out == plain
+    with open(d / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    printed = sum(re.match(r"(window \d+ )?slice \d+", ln) is not None
+                  for ln in out.splitlines())
+    assert names.count("slice") == printed + warm > warm
+    assert spans <= set(names), spans - set(names)
 
 
 def test_cli_optics_chi_and_plots(tmp_path, capsys):
@@ -255,3 +288,28 @@ def test_two_ranks_under_torchrun_env(case, small_stream, capsys):
     assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
     assert_lines_match(outs[0][0], want)
     assert outs[1][0] == ""
+
+
+def test_two_ranks_trace_one_file_each(small_stream, tmp_path):
+    """`temporal --trace DIR` under two ranks: rank 0 writes DIR/trace.json,
+    rank 1 DIR/rank1/trace.json, each with its window's slice spans."""
+    d = tmp_path / "trace"
+    argv = ["temporal", "--exact", "--windows", "2", "--warmup", "2",
+            "--input", small_stream, "--trace", str(d)]
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-m", "evflow_tpu_torch.run", *CPU, *argv],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+    for path in (d / "trace.json", d / "rank1" / "trace.json"):
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"]
+        assert names.count("slice") > 0 and "exact_engine" in names

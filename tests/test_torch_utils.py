@@ -1,6 +1,6 @@
 """The port's utils against tests/test_utils.py's cases: the npz
-checkpoint round trip and its shape check, the profiling helpers (plus the
-torch.profiler span and the Chrome trace), and the PCD reader and writer
+checkpoint round trip and its shape check, the span API (`span`,
+`spanned`) and the Chrome trace, and the PCD reader and writer
 (plus files byte-equal to the JAX package's writer's)."""
 
 import json
@@ -39,29 +39,30 @@ def test_checkpoint_shape_mismatch_rejected(tmp_path):
                                                          device="cpu"))
 
 
-def test_stopwatch_and_meter():
-    sw = profiling.Stopwatch()
-    sw.lap()
-    assert sw.elapsed() >= 0
-    assert len(sw.elapsed_laps()) == 1
-    m = profiling.ThroughputMeter()
-    m.add_slice(100)
-    m.add_slice(200)
-    assert m.events == 300 and m.slices == 2
-    assert "events_per_s" in m.report()
-
-
-def test_stage_timer_and_trace(tmp_path):
-    sink = {}
+def test_span_and_trace(tmp_path):
+    """Inside `trace`, each span is a range of the Chrome trace; outside any
+    profiler, `span` is one shared no-op context."""
     log_dir = str(tmp_path / "trace")
     with profiling.trace(log_dir):
         for _ in range(2):
-            with profiling.stage_timer("dedup", sink, sync=True):
+            with profiling.span("dedup"):
                 torch.arange(1000).sort()
-    assert set(sink) == {"dedup"} and sink["dedup"] > 0
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
-    assert sum(e.get("name") == "dedup" for e in events) == 2
+    assert sum(e.get("name") == "dedup" and e.get("cat") == "user_annotation"
+               for e in events) == 2
+    assert profiling.span("dedup") is profiling.span("tracker")
+
+    @profiling.spanned("sae")
+    def scatter(n):
+        return torch.arange(n).flip(0)
+
+    with profiling.trace(log_dir):
+        assert scatter(4).tolist() == [3, 2, 1, 0]
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert sum(e.get("name") == "sae" and e.get("cat") == "user_annotation"
+               for e in events) == 1
 
 
 def test_pcd_roundtrip(tmp_path):
