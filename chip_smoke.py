@@ -6,10 +6,11 @@ Phases, one line each:
      kernels in evflow_tpu_torch/csrc;
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and on real inputs (a few slices into the stream below):
-     the eFAST stencil, the two fastcluster kernels (cluster_stats also
-     bit-equal to itself over two calls), and the exact
-     AEClustering engine (2 DEFAULT slices from the same state, every
-     AEState field equal);
+     the eFAST stencil, the eFAST ring test (the q=8 path's first
+     sub-slice of 2048 events, 1024 candidate lanes), the two fastcluster
+     kernels (cluster_stats also bit-equal to itself over two calls), and
+     the exact AEClustering engine (2 DEFAULT slices from the same state,
+     every AEState field equal);
   3. the port's main path, pipeline.full_scan at the DEFAULT configuration
      (1280x720 SAE, 16384 events per slice, 128 clusters, 8192 eFAST
      candidates, NMS capacity 512, 256 tracks, q=1) over a 32-slice
@@ -318,13 +319,15 @@ def kernel_bounds(new_sae, act, band, cfg, x, alive, ae_state, lanes, n_clusters
     }
 
 
-def launch_grids(h, w, band, n) -> dict:
+def launch_grids(h, w, band, n, lanes) -> dict:
     """(blocks, threads, cluster size) of each kernel's launch at phase 2's
     shapes, as its source's host entry point computes them."""
     from evflow_tpu_torch.ops import efast
     return {
         # efast_stencil.cu: (tile columns, bands, row groups of 2 rows) x 256
         "efast_stencil": (-(-w // efast.WTILE) * -(-h // band) * -(-band // 2), 256, 1),
+        # efast_ring.cu: one thread per candidate lane, 64 per CTA
+        "efast_ring": (-(-lanes // 64), 64, 1),
         # assign_manhattan.cu: one warp per CTA, 2 events per thread
         "assign_manhattan": (-(-n // 64), 32, 1),
         # cluster_stats.cu: one thread-block cluster of 8 CTAs x 512
@@ -1444,6 +1447,21 @@ def main() -> int:
     results["efast_stencil"].update(all_tiles_ms=cuda_ms(all_tiles),
                                     all_tiles_device_ms=device_ms(all_tiles))
 
+    # the ring test on the q=8 path's first sub-slice of slice 3: its
+    # surface and its max(cap // 8, 64) representative candidates
+    nsub, m_sub = n // 8, max(cfg.efast.max_candidates // 8, 64)
+    sub_sae = sae_ops.update_sae(co.sae, x[:nsub], y[:nsub], tt[:nsub], v[:nsub])
+    rcx, rcy, rcv, _ = pipeline._representative_candidates(
+        x[:nsub], y[:nsub], v[:nsub], m_sub, cfg)
+    ring_args = (sub_sae[None], rcx[None], rcy[None], rcv[None], cfg.efast, cfg.sensor)
+    got = efast._ring_test(*ring_args)
+    want = efast._ring_test_plain(*ring_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"efast_ring: {int((got != want).sum())} lanes differ"
+    ring_corners = int(want.sum())
+    results["efast_ring"] = dict(max_abs_err=0.0, **timed(
+        lambda: efast._ring_test(*ring_args), lambda: efast._ring_test_plain(*ring_args)))
+
     radius = cfg.cluster.radius
     lab_k, dist_k = ck.assign_manhattan(x, y, cl.mu, cl.alive, radius)
     lab_p, dist_p = ck.assign_manhattan_plain(x, y, cl.mu, cl.alive, radius)
@@ -1486,7 +1504,9 @@ def main() -> int:
             lambda: ck.cluster_stats(labels, px, py, alpha, c, k_after),
             lambda: ck.cluster_stats_plain(labels, px, py, alpha, c, k_after)).items()})
     print(f"kernels vs plain: efast mask bit-equal ({corners_full} corner pixels, "
-          f"{int(act.sum())}/{act.numel()} tiles active), assign_manhattan "
+          f"{int(act.sum())}/{act.numel()} tiles active), efast_ring bit-equal "
+          f"({ring_corners} corners of {int(rcv.sum())} candidates of {m_sub} lanes), "
+          f"assign_manhattan "
           f"bit-equal ({int((lab_k >= 0).sum())} assigned, {int(cl.alive.sum())} clusters "
           f"alive), cluster_stats counts exact, max |err| "
           f"{results['cluster_stats']['max_abs_err']:.3g} (with k_after "
@@ -1524,7 +1544,10 @@ def main() -> int:
         max_abs_err=mu_err, ms=cuda_ms(exact_call), plain_ms=plain_exact_ms,
         device_ms=device_ms(exact_call))
     bounds = kernel_bounds(new_sae, act, band, cfg, x, cl.alive, ae0, lanes[3], c)
-    for name, (blocks, threads, size) in launch_grids(h, w, band, n).items():
+    bounds["efast_ring"] = bound(
+        154 * m_sub, 0, 0, f"{m_sub} lanes: x, y, valid read, 36 int32 ring samples "
+        "gathered, the mask written; the scan's operations depend on the data")
+    for name, (blocks, threads, size) in launch_grids(h, w, band, n, m_sub).items():
         bounds[name]["grid"] = (blocks, threads, size)
         bounds[name]["launch_floor_ms"] = device_ms(
             lambda: kernels.launch_floor(blocks, threads, size))
@@ -1612,7 +1635,8 @@ def main() -> int:
 
     # ---- 5. full_scan at q=8, counted
     launches_q8, corners_q8, filtered_q8, reported_q8, scan_q8 = counted_full_scan(
-        cfg_q8, ("assign_manhattan", "cluster_stats"))
+        cfg_q8, ("efast_ring", "assign_manhattan", "cluster_stats"))
+    assert launches_q8["efast_ring"] == 8 * N_SLICES, launches_q8
     teacher_forced(cfg_q8, range(1, 5))
     print(f"q=8 path: launches {launches_q8} over {N_SLICES} slices; corners/slice "
           f"{corners_q8.tolist()}; filtered {filtered_q8.tolist()}; clusters "
@@ -1639,14 +1663,17 @@ def main() -> int:
 
     @contextlib.contextmanager
     def plain_versions():
-        saved = efast.corner_mask_stencil, ck.assign_manhattan, ck.cluster_stats
+        saved = (efast.corner_mask_stencil, efast._ring_test, ck.assign_manhattan,
+                 ck.cluster_stats)
         efast.corner_mask_stencil = efast.corner_mask_stencil_plain
+        efast._ring_test = efast._ring_test_plain
         ck.assign_manhattan = ck.assign_manhattan_plain
         ck.cluster_stats = ck.cluster_stats_plain
         try:
             yield
         finally:
-            efast.corner_mask_stencil, ck.assign_manhattan, ck.cluster_stats = saved
+            (efast.corner_mask_stencil, efast._ring_test, ck.assign_manhattan,
+             ck.cluster_stats) = saved
 
     scan_ms = {}
     for label, c in (("q=1", cfg), ("q=8", cfg_q8)):
@@ -1697,7 +1724,7 @@ def main() -> int:
     cfg_stack = dataclasses.replace(cfg_q8, efast=dataclasses.replace(cfg_q8.efast,
                                                                       micro_stack=True))
     launches_st, corners_st, _, reported_st, scan_st = counted_full_scan(
-        cfg_stack, ("assign_manhattan", "cluster_stats"))
+        cfg_stack, ("efast_ring", "assign_manhattan", "cluster_stats"))
     interop.assert_trees_close(scan_st, scan_q8, **EXACT_TOL, what="stack vs serial q=8")
     teacher_forced(cfg_stack, range(1, 5))
     agreement_st = fidelity.corner_agreement(8, device=dev, stack=True)
@@ -1728,13 +1755,16 @@ def main() -> int:
 
     sources = {"efast_stencil": ("evflow_tpu_torch/csrc/efast_stencil.cu",
                                  "evflow_tpu/ops/efast.py:397"),
+               "efast_ring": ("evflow_tpu_torch/csrc/efast_ring.cu",
+                              "none (evflow_tpu/ops/efast.py:detect_corners is plain XLA)"),
                "assign_manhattan": ("evflow_tpu_torch/csrc/assign_manhattan.cu",
                                     "evflow_tpu/ops/pallas_kernels.py:52"),
                "cluster_stats": ("evflow_tpu_torch/csrc/cluster_stats.cu",
                                  "evflow_tpu/ops/pallas_kernels.py:170"),
                "aeclustering_exact": ("evflow_tpu_torch/csrc/aeclustering_exact.cu",
                                       "evflow_tpu/models/aeclustering_pallas.py:221")}
-    path_launches = dict(launches, aeclustering_exact=launches_exact["aeclustering_exact"])
+    path_launches = dict(launches, aeclustering_exact=launches_exact["aeclustering_exact"],
+                         efast_ring=launches_q8["efast_ring"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": path_launches[name],

@@ -34,19 +34,24 @@
 //   The lengths scanned, [SLO, SHI], are compile-time: [smin, smax] at the
 //   default bounds (3..6 and 4..8), else [1, R-1]; each is tested against
 //   the configured range at run time.
+// The streak test is efast_streak.cuh's, shared with csrc/efast_ring.cu.
 // ops/efast.py:streak_any_scan is this arithmetic on the CPU; the tests
 // hold it to _streak_any and the JAX package's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "efast_streak.cuh"
+
 namespace {
+
+using efast::kR3;
+using efast::kR4;
+using efast::streak_any;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 2;     // tile rows per CTA
 constexpr int kHalo = 4;
-constexpr int kR3 = 16;
-constexpr int kR4 = 20;
 
 // (dy, dx) in group_track order: time_surface.at(y + c[i][0], x + c[i][1])
 __constant__ int kCircle3[kR3][2] = {
@@ -56,63 +61,6 @@ __constant__ int kCircle4[kR4][2] = {
     {0, 4}, {1, 4}, {2, 3}, {3, 2}, {4, 1}, {4, 0}, {4, -1}, {3, -2}, {2, -3},
     {1, -4}, {0, -4}, {-1, -4}, {-2, -3}, {-3, -2}, {-4, -1}, {-4, 0}, {-4, 1},
     {-3, 2}, {-2, 3}, {-1, 4}};
-
-__host__ __device__ constexpr int log2_floor(int v) { return v >= 2 ? 1 + log2_floor(v / 2) : 0; }
-
-// some start and length in [smin, smax] passes; the lengths [SLO, SHI]
-// (which hold [smin, smax]) are scanned, each tested against the range
-template <int R, int SLO, int SHI>
-__device__ __forceinline__ bool streak_any(const int (&ring)[R], int smin, int smax) {
-  static_assert(1 <= SLO && SLO <= SHI && SHI < R, "lengths outside the ring");
-
-  int lo = ring[0];
-#pragma unroll
-  for (int k = 1; k < R; ++k) lo = min(lo, ring[k]);
-  int above = 0;
-#pragma unroll
-  for (int k = 0; k < R; ++k) above += ring[k] > lo;
-  if (above < smin) return false;
-
-  // om[i] = max(ring[i+SHI .. i+R-1]): a window of L samples, as the max of
-  // two windows of P <= L samples from a doubling sliding maximum
-  constexpr int L = R - SHI;
-  constexpr int kLevels = log2_floor(L);
-  constexpr int P = 1 << kLevels;
-  int wmax[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) wmax[k] = ring[k];
-#pragma unroll
-  for (int lvl = 0; lvl < kLevels; ++lvl) {
-    const int p = 1 << lvl;
-    int nxt[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) nxt[k] = max(wmax[k], wmax[(k + p) % R]);
-#pragma unroll
-    for (int k = 0; k < R; ++k) wmax[k] = nxt[k];
-  }
-
-  bool found = false;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    int amin[SHI - SLO + 1];   // amin[s - SLO] = min(ring[i .. i+s-1])
-    int a = ring[i];
-#pragma unroll
-    for (int s = 1; s < SLO; ++s) a = min(a, ring[(i + s) % R]);
-    amin[0] = a;
-#pragma unroll
-    for (int s = SLO + 1; s <= SHI; ++s) {
-      a = min(a, ring[(i + s - 1) % R]);
-      amin[s - SLO] = a;
-    }
-    int off = max(wmax[(i + SHI) % R], wmax[(i + SHI + L - P) % R]);
-#pragma unroll
-    for (int s = SHI; s >= SLO; --s) {
-      if (s < SHI) off = max(off, ring[(i + s) % R]);
-      found |= (s >= smin) & (s <= smax) & (amin[s - SLO] > off);
-    }
-  }
-  return found;
-}
 
 template <bool kTranspose, int S3LO, int S3HI, int S4LO, int S4HI>
 __global__ void __launch_bounds__(kThreads)
@@ -204,8 +152,7 @@ extern "C" int efast_stencil(const void* sae, int h, int w, const void* active,
                              int sensor_w, int sensor_h, int s3min, int s3max,
                              int s4min, int s4max, int transpose, void* out,
                              void* stream) {
-  if (!(1 <= s3min && s3min <= s3max && s3max < kR3 && 1 <= s4min &&
-        s4min <= s4max && s4max < kR4) || band < 1 || wtile < 1)
+  if (!efast::streaks_legal(s3min, s3max, s4min, s4max) || band < 1 || wtile < 1)
     return (int)cudaErrorInvalidValue;
   const bool dflt = s3min == 3 && s3max == 6 && s4min == 4 && s4max == 8;
 #define EFAST_LAUNCH(T, A, B, C, D)                                             \

@@ -32,8 +32,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("efast_stencil.cu", "assign_manhattan.cu", "cluster_stats.cu",
+SOURCES = ("efast_stencil.cu", "efast_ring.cu", "assign_manhattan.cu", "cluster_stats.cu",
            "aeclustering_exact.cu", "launch_floor.cu")
+HEADERS = ("efast_streak.cuh",)   # included by sources; part of the library's hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "evflow_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +46,10 @@ _SIGNATURES = {
     # s3min, s3max, s4min, s4max, transpose, out
     "efast_stencil": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P],
+    # sae, q, h, w, x, y, valid, m, border, sensor_w, sensor_h,
+    # s3min, s3max, s4min, s4max, transpose, out
+    "efast_ring": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _P],
     # x, y, n, mu, alive, c, radius, labels, dist
     "assign_manhattan": [_P, _P, _I, _P, _P, _I, _F, _P, _P],
     # labels, x, y, n, c, alpha, k_after (null: none), out
@@ -82,7 +87,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update((CSRC / s).read_bytes())
     return BUILD_DIR / f"libevflow_kernels-{h.hexdigest()[:16]}.so"
 

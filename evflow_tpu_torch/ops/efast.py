@@ -8,7 +8,9 @@ two boundary monotonicity checks), and likewise an arc of 4..8 on circle4.
 - `detect_corners`: per-candidate test with a direct 36-point gather (the
   JAX package's 8x8-block gather layout works around the TPU gather unit
   and is not carried over); `detect_corners_stacked`, the same over a
-  stack of surface snapshots at once.
+  stack of surface snapshots at once. Both are one launch of the CUDA
+  kernel csrc/efast_ring.cu on the card (`_ring_test`); CPU tensors take
+  its plain version, `_ring_test_plain`.
 - `corner_mask_stencil`: the dense mask over (band x 128-px) tiles, computed
   by the CUDA kernel csrc/efast_stencil.cu on the card, where inactive tiles
   are skipped and come back False. On CPU tensors it takes its plain
@@ -202,9 +204,7 @@ def corner_mask_stencil(sae: torch.Tensor, active: torch.Tensor,
     device = _check_stencil_args(sae, active, band, wtile)
     if device < 0:
         return corner_mask_stencil_plain(sae, active, cfg, sensor, band, wtile)
-    if not (1 <= cfg.streak3_min <= cfg.streak3_max < len(CIRCLE3)
-            and 1 <= cfg.streak4_min <= cfg.streak4_max < len(CIRCLE4)):
-        raise ValueError(f"streak lengths outside the rings: {cfg}")
+    _check_streaks(cfg)
     h, w = sae.shape
     out = torch.empty((h, w), dtype=torch.bool, device=sae.device)
     kernels.launch("efast_stencil", device, sae.data_ptr(), h, w, active.data_ptr(),
@@ -266,7 +266,7 @@ def detect_corners(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                    sensor: SensorConfig = SensorConfig()) -> torch.Tensor:
     """(N,) bool corner mask of candidate events against the SAE, which must
     already hold this slice's events. Border events are not candidates."""
-    return _candidates(x, y, valid, cfg, sensor) & _ring_test(sae, x, y, cfg)
+    return _ring_test(sae[None], x[None], y[None], valid[None], cfg, sensor)[0]
 
 
 def detect_corners_stacked(saes: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -278,10 +278,7 @@ def detect_corners_stacked(saes: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     a ring never crosses into the next snapshot, since candidates within
     `border` of an edge are rejected first. Bit-identical to per-snapshot
     `detect_corners`."""
-    q, h, w = saes.shape
-    off = (torch.arange(q, dtype=y.dtype, device=y.device) * h)[:, None]
-    found = _ring_test(saes.reshape(q * h, w), x.reshape(-1), (y + off).reshape(-1), cfg)
-    return _candidates(x, y, valid, cfg, sensor) & found.reshape(q, -1)
+    return _ring_test(saes, x, y, valid, cfg, sensor)
 
 
 def _candidates(x, y, valid, cfg: EFastConfig, sensor: SensorConfig) -> torch.Tensor:
@@ -290,18 +287,67 @@ def _candidates(x, y, valid, cfg: EFastConfig, sensor: SensorConfig) -> torch.Te
         & (y < sensor.height - cs)
 
 
-def _ring_test(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-               cfg: EFastConfig) -> torch.Tensor:
-    """Both streak tests on the 36 ring samples around each (x, y), the
-    ring's pixels clamped into the surface."""
-    h, w = sae.shape
+def _check_streaks(cfg: EFastConfig) -> None:
+    """The kernels' streak lengths must lie inside the rings."""
+    if not (1 <= cfg.streak3_min <= cfg.streak3_max < len(CIRCLE3)
+            and 1 <= cfg.streak4_min <= cfg.streak4_max < len(CIRCLE4)):
+        raise ValueError(f"streak lengths outside the rings: {cfg}")
+
+
+def _check_ring_args(saes, x, y, valid):
+    q, h, w = saes.shape
+    m = x.shape[-1]
+    kernels.check(saes, "sae", torch.int32, (q, h, w))
+    kernels.check(x, "x", torch.int32, (q, m))
+    kernels.check(y, "y", torch.int32, (q, m))
+    kernels.check(valid, "valid", torch.bool, (q, m))
+    return kernels.check_device(saes, x, y, valid)
+
+
+def _ring_test_plain(saes: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                     valid: torch.Tensor, cfg: EFastConfig,
+                     sensor: SensorConfig) -> torch.Tensor:
+    """Plain version of `_ring_test`: both streak tests on the 36 ring
+    samples around each (x, y), gathered from the (Q*H, W) stack with the
+    ring's pixels clamped into it, and the candidates' border test."""
+    _check_ring_args(saes, x, y, valid)
+    q, h, w = saes.shape
+    sae = saes.reshape(q * h, w)
+    yy = (y + (torch.arange(q, dtype=y.dtype, device=y.device) * h)[:, None]).reshape(-1)
+    xx = x.reshape(-1)
     dy, dx = _ring_offsets(cfg)
-    dy = torch.tensor(dy, dtype=y.dtype, device=y.device)
-    dx = torch.tensor(dx, dtype=x.dtype, device=x.device)
-    rows = (y[:, None] + dy[None, :]).clamp(0, h - 1)
-    cols = (x[:, None] + dx[None, :]).clamp(0, w - 1)
-    rings = sae[rows, cols]                                 # (N, 36)
+    dy = torch.tensor(dy, dtype=yy.dtype, device=yy.device)
+    dx = torch.tensor(dx, dtype=xx.dtype, device=xx.device)
+    rows = (yy[:, None] + dy[None, :]).clamp(0, q * h - 1)
+    cols = (xx[:, None] + dx[None, :]).clamp(0, w - 1)
+    rings = sae[rows, cols]                                 # (Q*M, 36)
     n3 = len(CIRCLE3)
     f3 = _streak_any(rings[:, :n3], cfg.streak3_min, cfg.streak3_max)
     f4 = _streak_any(rings[:, n3:], cfg.streak4_min, cfg.streak4_max)
-    return f3 & f4
+    return _candidates(x, y, valid, cfg, sensor) & (f3 & f4).reshape(x.shape)
+
+
+def _ring_test(saes: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               valid: torch.Tensor, cfg: EFastConfig,
+               sensor: SensorConfig) -> torch.Tensor:
+    """(Q, M) bool: the candidates (x[q], y[q], valid[q]) of each snapshot
+    saes[q] ((Q, H, W) int32) that lie inside the sensor's border and pass
+    both streak tests, the ring's pixels clamped into the (Q*H, W) stack.
+    CUDA tensors launch csrc/efast_ring.cu, one launch and no sync; CPU
+    tensors take the plain version. The surface's (H, W) bound the clamp,
+    the sensor's width and height the border test: a tile's slab differs
+    from its sensor frame (parallel/tiling.py)."""
+    device = _check_ring_args(saes, x, y, valid)
+    if device < 0:
+        return _ring_test_plain(saes, x, y, valid, cfg, sensor)
+    _check_streaks(cfg)
+    q, h, w = saes.shape
+    out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    if out.numel() == 0:
+        return out
+    kernels.launch("efast_ring", device, saes.data_ptr(), q, h, w, x.data_ptr(),
+                   y.data_ptr(), valid.data_ptr(), x.shape[1], cfg.border,
+                   sensor.width, sensor.height, cfg.streak3_min, cfg.streak3_max,
+                   cfg.streak4_min, cfg.streak4_max,
+                   int(not cfg.group_track_axis_order), out.data_ptr())
+    return out

@@ -101,6 +101,87 @@ def test_efast_stencil_bounds_and_bands(cuda, bounds, band):
     assert torch.equal(got, efast.corner_mask_stencil_plain(st, act, cfg, sensor, band))
 
 
+def _ring_lanes(rng, n, corners, h, w, border):
+    """(x, y, valid) of n candidate lanes on an (h, w) surface: the surface's
+    corners and edges and pixels either side of the border first, then
+    corner pixels of the dense mask (`corners`, (K, 2) x, y) and random
+    pixels in turn; 15 % of the lanes invalid."""
+    fixed = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (w // 2, 0), (w // 2, h - 1),
+             (0, h // 2), (w - 1, h // 2), (border, border), (border - 1, h // 2),
+             (w - border - 1, h - border - 1), (w - border, border), (w // 2, h - border)]
+    x = rng.integers(0, w, n)
+    y = rng.integers(0, h, n)
+    pick = rng.integers(0, len(corners), n)
+    x[1::2], y[1::2] = corners[pick[1::2], 0], corners[pick[1::2], 1]
+    k = min(n, len(fixed))
+    x[:k], y[:k] = np.array(fixed[:k]).T
+    v = rng.random(n) < 0.85
+    return torch.as_tensor(x.astype(np.int32)), torch.as_tensor(y.astype(np.int32)), \
+        torch.as_tensor(v)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 1024, 4097])
+@pytest.mark.parametrize("axis_order", [True, False])
+@pytest.mark.parametrize("bounds", [(3, 6, 4, 8), (2, 9, 3, 12)])
+def test_efast_ring_matches_plain(cuda, n, axis_order, bounds):
+    """The ring-test kernel against its plain version, bit for bit: lanes
+    on the surface's edges and corners (the clamp), either side of the
+    border and invalid; the surface's own sensor, a border of 0 (edge lanes
+    are candidates, their rings clamped) and a slab sensor wider than the
+    surface (parallel/tiling.py's case). One launch per call."""
+    rng = np.random.default_rng(12 + n)
+    h, w = 120, 256
+    cfg = EFastConfig(streak3_min=bounds[0], streak3_max=bounds[1], streak4_min=bounds[2],
+                      streak4_max=bounds[3], group_track_axis_order=axis_order)
+    st = _surface(rng, h, w)
+    own = SensorConfig(width=w, height=h)
+    corners = efast.corner_mask_dense(st, cfg, own).nonzero().flip(1).numpy()
+    assert len(corners) > 0
+    x, y, v = _ring_lanes(rng, n, corners, h, w, cfg.border)
+    args = [a[None].to(cuda) for a in (st, x, y, v)]
+    total = 0
+    for c, sensor in ((cfg, own), (dataclasses.replace(cfg, border=0), own),
+                      (cfg, SensorConfig(width=w + 40, height=h))):
+        before = kernels.LAUNCHES["efast_ring"]
+        got = efast._ring_test(*args, c, sensor)
+        assert kernels.LAUNCHES["efast_ring"] == before + 1
+        want = efast._ring_test_plain(*[a[None] for a in (st, x, y, v)], c, sensor)
+        assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
+        total += int(want.sum())
+    if n >= 64:
+        assert total > 0
+
+
+def test_efast_ring_stack_and_empty(cuda):
+    """detect_corners_stacked on the card (8 snapshots of 128 lanes, one
+    launch) against the plain version; detect_corners at N = 0 launches
+    nothing; the kernel path runs with synchronizing calls made errors."""
+    rng = np.random.default_rng(21)
+    h, w, q, m = 120, 256, 8, 128
+    saes = torch.stack([_surface(rng, h, w) for _ in range(q)])
+    sensor = SensorConfig(width=w, height=h)
+    corners = efast.corner_mask_dense(saes[0], EFastConfig(), sensor).nonzero().flip(1).numpy()
+    x, y, v = (torch.stack(a) for a in zip(*[_ring_lanes(rng, m, corners, h, w, 4)
+                                              for _ in range(q)]))
+    before = kernels.LAUNCHES["efast_ring"]
+    got = efast.detect_corners_stacked(*[a.to(cuda) for a in (saes, x, y, v)],
+                                       EFastConfig(), sensor)
+    assert kernels.LAUNCHES["efast_ring"] == before + 1
+    want = efast._ring_test_plain(saes, x, y, v, EFastConfig(), sensor)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+    sae, e = saes[0].to(cuda), torch.zeros(0, dtype=torch.int32, device=cuda)
+    empty = efast.detect_corners(sae, e, e, e.bool(), EFastConfig(), sensor)
+    assert empty.shape == (0,) and kernels.LAUNCHES["efast_ring"] == before + 1
+    xc, yc, vc = x[0].to(cuda), y[0].to(cuda), v[0].to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one = efast.detect_corners(sae, xc, yc, vc, EFastConfig(), sensor)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(one.cpu(), want[0])
+
+
 @pytest.mark.parametrize("n", [16384, 1000, 1])
 def test_cluster_kernels_match_plain(cuda, n):
     rng = np.random.default_rng(n)
@@ -273,7 +354,7 @@ def test_full_scan_on_card_matches_cpu(cuda):
 
     kernels.reset_launches()
     (gcl, gco), (gclo, gcoo) = scan(cuda)
-    assert kernels.LAUNCHES == {"efast_stencil": 6, "assign_manhattan": 6,
+    assert kernels.LAUNCHES == {"efast_stencil": 6, "efast_ring": 0, "assign_manhattan": 6,
                                 "cluster_stats": 6, "aeclustering_exact": 0}, kernels.LAUNCHES
     (wcl, wco), (wclo, wcoo) = scan("cpu")
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
@@ -495,7 +576,8 @@ def test_neighbor_counts_ignore_matmul_precision(cuda):
 
 def test_stack_path_on_card_matches_cpu(cuda):
     """full_scan at q=8 with micro_stack on the card: the fastcluster
-    kernels launch each slice, the corner chain equals the card's serial
+    kernels launch each slice and the ring test each sub-slice, in the
+    stack and the serial form; the corner chain equals the card's serial
     q=8 run bit for bit and the CPU's within the tracker tolerance."""
     n = 2048
     cfg = dataclasses.replace(
@@ -521,8 +603,12 @@ def test_stack_path_on_card_matches_cpu(cuda):
 
     kernels.reset_launches()
     got = scan(cuda, stack)
-    assert kernels.LAUNCHES["assign_manhattan"] == 6 and kernels.LAUNCHES["cluster_stats"] == 6
-    interop.assert_trees_close(got, scan(cuda, cfg), rtol=0, atol=0, what="stack vs serial")
+    assert kernels.LAUNCHES == {"efast_stencil": 0, "efast_ring": 6 * 8, "assign_manhattan": 6,
+                                "cluster_stats": 6, "aeclustering_exact": 0}, kernels.LAUNCHES
+    kernels.reset_launches()
+    serial = scan(cuda, cfg)
+    assert kernels.LAUNCHES["efast_ring"] == 6 * 8, kernels.LAUNCHES
+    interop.assert_trees_close(got, serial, rtol=0, atol=0, what="stack vs serial")
     (gcl, gco), (gclo, gcoo) = got
     (wcl, wco), (wclo, wcoo) = scan("cpu", stack)
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
@@ -652,7 +738,7 @@ def test_tiled_cluster_and_corner_steps_on_card_match_cpu(cuda):
             outs.append(interop.to_leaves((st, out, uc, rc, co, cout)))
         runs[dev.type] = outs
         if dev.type == "cuda":
-            for name in ("assign_manhattan", "cluster_stats"):
+            for name in ("assign_manhattan", "cluster_stats", "efast_ring"):
                 assert kernels.LAUNCHES[name] == before[name] + sl.num_slices
     for s, (got, want) in enumerate(zip(runs["cuda"], runs["cpu"])):
         for a, b in zip(got, want):

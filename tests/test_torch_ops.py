@@ -9,6 +9,8 @@ and against its scalar-loop numpy oracle.
 The CUDA stencil itself runs only on a card (`-m cuda`, see README)."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 from evflow_tpu.config import DedupConfig, EFastConfig, NMSConfig, SensorConfig
 from evflow_tpu.ops import efast as jefast, hash_dedup as jdedup
 from evflow_tpu.ops import nms as jnms, sae as jsae
+from evflow_tpu_torch import kernels
 from evflow_tpu_torch.ops import efast, hash_dedup, nms, sae
 
 torch.set_num_threads(2)
@@ -165,6 +168,80 @@ def test_detect_corners_matches_jax_and_oracle(axis_order):
     assert int(got.sum()) > 0
     oracle = jefast.detect_corners_reference_numpy(sae_, x, y, cfg, SENSOR)
     _eq(got, oracle & v)
+
+
+@pytest.mark.parametrize("axis_order", [True, False])
+def test_ring_test_on_cpu_takes_plain_version(axis_order):
+    """`_ring_test` on CPU tensors is its plain version, launches nothing,
+    and equals JAX's detect_corners and its numpy oracle, one snapshot and
+    a stack of two alike."""
+    rng = np.random.default_rng(6)
+    cfg = EFastConfig(group_track_axis_order=axis_order)
+    saes = np.stack([_surface(rng), _surface(rng)])
+    xs, ys, vs = zip(*[_events(rng, 1024, out_of_range=False) for _ in range(2)])
+    before = kernels.LAUNCHES["efast_ring"]
+    got = efast._ring_test(_t(saes), _t(np.stack(xs)), _t(np.stack(ys)), _t(np.stack(vs)),
+                           cfg, SENSOR)
+    assert kernels.LAUNCHES["efast_ring"] == before
+    assert got.shape == (2, 1024) and int(got.sum()) > 0
+    _eq(got, efast._ring_test_plain(_t(saes), _t(np.stack(xs)), _t(np.stack(ys)),
+                                    _t(np.stack(vs)), cfg, SENSOR))
+    for k in range(2):
+        _eq(got[k], jefast.detect_corners(jnp.asarray(saes[k]), jnp.asarray(xs[k]),
+                                          jnp.asarray(ys[k]), jnp.asarray(vs[k]), cfg, SENSOR))
+        _eq(got[k], jefast.detect_corners_reference_numpy(saes[k], xs[k], ys[k], cfg, SENSOR)
+            & vs[k])
+
+
+def _ring_args(case):
+    """(saes, x, y, valid) of one bad call: each breaks one of the checks."""
+    saes = torch.zeros((1, H, W), dtype=torch.int32)
+    x = torch.full((1, 64), 10, dtype=torch.int32)
+    y, v = x.clone(), torch.ones((1, 64), dtype=torch.bool)
+    if case == "sae-dtype":
+        saes = saes.to(torch.int64)
+    elif case == "x-dtype":
+        x = x.to(torch.int64)
+    elif case == "valid-dtype":
+        v = v.to(torch.int32)
+    elif case == "sae-not-contiguous":
+        saes = torch.zeros((1, W, H), dtype=torch.int32).transpose(1, 2)
+    elif case == "y-not-contiguous":
+        y = torch.full((1, 128), 10, dtype=torch.int32)[:, ::2]
+    elif case == "lengths":
+        y = y[:, :63].contiguous()
+    elif case == "valid-lengths":
+        v = torch.ones((1, 65), dtype=torch.bool)
+    elif case == "snapshots":
+        x, y, v = (torch.cat([a, a]) for a in (x, y, v))
+    return saes, x, y, v
+
+
+@pytest.mark.parametrize("case,error", [
+    ("sae-dtype", TypeError), ("x-dtype", TypeError), ("valid-dtype", TypeError),
+    ("sae-not-contiguous", ValueError), ("y-not-contiguous", ValueError),
+    ("lengths", ValueError), ("valid-lengths", ValueError), ("snapshots", ValueError)])
+def test_ring_test_checks_raise_before_a_launch(case, error):
+    """The ring test's checks, which run before its kernel's launch, on CPU
+    tensors: the check function itself, the wrapper and the detector."""
+    args = _ring_args(case)
+    before = kernels.LAUNCHES["efast_ring"]
+    with pytest.raises(error):
+        efast._check_ring_args(*args)
+    with pytest.raises(error):
+        efast._ring_test(*args, EFastConfig(), SENSOR)
+    assert kernels.LAUNCHES["efast_ring"] == before
+    efast._check_ring_args(*_ring_args("none"))
+
+
+def test_ring_kernel_offsets_are_the_circles():
+    """csrc/efast_ring.cu's compile-time ring offsets are CIRCLE3 then
+    CIRCLE4 in group_track order."""
+    src = (Path(efast.__file__).parents[1] / "csrc" / "efast_ring.cu").read_text()
+    want = np.concatenate([efast.CIRCLE3, efast.CIRCLE4])
+    for k, name in enumerate(("ring_dy", "ring_dx")):
+        body = re.search(name + r"\(int k\) \{.*?\{(.*?)\};", src, re.S).group(1)
+        _eq([int(v) for v in body.split(",")], want[:, k])
 
 
 def test_dense_masks_match_jax_pallas_stencils():
