@@ -15,9 +15,17 @@ lower root index.
 matmul-free form: on integer pixel coordinates every term is exact, so
 labels, core masks and iteration counts are the same bits on the card, on
 the CPU and in JAX. `dbscan_grid` precomputes the neighbor table with
-OPTICS' grid (`optics.compute_neighbors_grid`) and propagates over it; it
-takes the dense path where JAX does: no table, or a row over the table's
-width.
+OPTICS' grid (`optics.grid_neighbors`) and propagates over it; it takes
+the dense path where JAX does: no table, or a row over the table's width.
+
+`dbscan_slice` is app C on one slice of an event stream already on the
+device: the (x, y) pixels of its valid events, duplicates kept, by
+dbscan_grid's rule, decided on the device (the grid's extent and largest
+cell, then the table's widest row, read back as a few integers; the points
+stay where they are), with each cluster's size and centroid. Its spans
+(`utils/profiling.span`): `dbscan` per call, `dbscan.table` the grid
+attempt with its decision, `dbscan.dense` the dense fallback, and
+`dbscan.round` each propagation round with its sync.
 """
 
 from __future__ import annotations
@@ -29,9 +37,13 @@ import torch
 
 from ..config import DBSCANConfig
 from ..ops.distance import pairwise_sqdist, radius_neighbor_counts
-from .optics import compute_neighbors_grid
+from ..ops.segment import segment_mean_points
+from ..utils.profiling import span
+from . import optics
 
 _BIG = 2**31 - 1
+_MAX_NEIGHBORS = 256   # the grid table's width
+_MAX_ITERS = 64        # propagation rounds at most
 _FAR = 1e30   # invalid lanes are parked here: their distances overflow to inf or nan
 
 
@@ -61,10 +73,11 @@ def _propagate(labels, core, nmin_of, max_iters):
     n = labels.shape[0]
     it, changed = 0, True
     while changed and it < max_iters:
-        new = torch.where(core, torch.minimum(labels, nmin_of(labels)), labels)
-        jumped = torch.where(new < n, new[new.clamp(0, n - 1).long()], new)
-        new = torch.minimum(new, jumped)
-        changed = bool((new != labels).any())
+        with span("dbscan.round"):
+            new = torch.where(core, torch.minimum(labels, nmin_of(labels)), labels)
+            jumped = torch.where(new < n, new[new.clamp(0, n - 1).long()], new)
+            new = torch.minimum(new, jumped)
+            changed = bool((new != labels).any())
         labels = new
         it += 1
     return labels, it
@@ -89,7 +102,7 @@ def _finish(labels, core, it, cfg: DBSCANConfig) -> DBSCANResult:
     return DBSCANResult(labels=torch.where(keep, rank[lab_c], -1),
                         num_clusters=(root_sizes > 0).sum(dtype=torch.int32),
                         core_mask=core,
-                        iterations=torch.tensor(it, dtype=torch.int32, device=dev))
+                        iterations=torch.full((), it, dtype=torch.int32, device=dev))
 
 
 def dbscan(points: torch.Tensor, valid: torch.Tensor | None = None,
@@ -102,7 +115,7 @@ def dbscan(points: torch.Tensor, valid: torch.Tensor | None = None,
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=dev)
     pts = torch.where(valid[:, None], points.to(torch.float32), _FAR)
-    eps2 = torch.tensor(cfg.eps * cfg.eps, dtype=torch.float32, device=dev)
+    eps2 = torch.full((), cfg.eps * cfg.eps, dtype=torch.float32, device=dev)
     counts = radius_neighbor_counts(pts, cfg.eps, valid, block)
     core = valid & (counts >= cfg.core_min_pts)
     labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), _BIG)
@@ -116,19 +129,65 @@ def dbscan(points: torch.Tensor, valid: torch.Tensor | None = None,
 
 
 def dbscan_grid(points: np.ndarray, cfg: DBSCANConfig = DBSCANConfig(),
-                max_neighbors: int = 256, max_iters: int = 64,
+                max_neighbors: int = _MAX_NEIGHBORS, max_iters: int = _MAX_ITERS,
                 device="cuda") -> DBSCANResult:
     """DBSCAN of (N, D) numpy points over a grid-bucketed neighbor table
     (O(N 3^d B) once instead of O(N^2) per round), computed on `device`.
     Falls back to `dbscan` (at its default max_iters, as in JAX) when the
     grid does not apply or a neighborhood overflows the table: an
     overflowed row could drop an eps-edge and split a cluster."""
-    pts_np = np.asarray(points, dtype=np.float32)
-    table = compute_neighbors_grid(pts_np, cfg.eps, cfg.core_min_pts,
-                                   max_neighbors=max_neighbors, device=device)
-    if table is None or bool((table.count > table.idx.shape[1]).any()):
-        return dbscan(torch.as_tensor(pts_np, device=device), cfg=cfg)
-    return _dbscan_from_table(table.idx, table.count, cfg, max_iters)
+    pts = torch.as_tensor(np.asarray(points, dtype=np.float32), device=device)
+    return _grid_or_dense(pts, None, cfg, max_neighbors, max_iters)
+
+
+def _grid_or_dense(pts: torch.Tensor, valid, cfg: DBSCANConfig, max_neighbors: int,
+                   max_iters: int) -> DBSCANResult:
+    """dbscan_grid's rule on (N, D) device points, over the valid lanes
+    (invalid lanes: -1, not core): the grid's table where it applies and no
+    row overflows it, else dense `dbscan`."""
+    n = pts.shape[0]
+    with span("dbscan.table"):
+        table = optics.grid_neighbors(pts, cfg.eps, cfg.core_min_pts, valid,
+                                      max_neighbors=max_neighbors)
+        if table is not None and bool((table.count > table.idx.shape[1]).any()):
+            table = None
+    if table is None:
+        with span("dbscan.dense"):
+            return dbscan(pts, valid, cfg=cfg)
+    res = _dbscan_from_table(table.idx, table.count, cfg, max_iters)
+    if table.idx.shape[0] == n:
+        return res
+    # the table holds the valid lanes, in order
+    def spread(v, fill):
+        return torch.full((n,), fill, dtype=v.dtype, device=v.device).masked_scatter(valid, v)
+    return res._replace(labels=spread(res.labels, -1), core_mask=spread(res.core_mask, False))
+
+
+class DBSCANSlice(NamedTuple):
+    labels: torch.Tensor        # int32 (N,) cluster 0..k-1 by size, -1 noise/filtered/invalid
+    core: torch.Tensor          # bool (N,)
+    num_clusters: torch.Tensor  # int32 ()
+    iterations: torch.Tensor    # int32 () propagation rounds used
+    size: torch.Tensor          # int32 (K,) members of cluster k, 0 past num_clusters
+    centroid: torch.Tensor      # float32 (K, 2) mean (x, y) of cluster k, 0 past num_clusters
+
+
+def dbscan_slice(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
+                 cfg: DBSCANConfig = DBSCANConfig()) -> DBSCANSlice:
+    """App C on one slice: DBSCAN of the (x, y) pixels of the valid events,
+    by dbscan_grid's rule (labels bit-equal to dbscan_grid at its defaults
+    on those pixels), on their device. Clusters are numbered by size and
+    each holds at least min_cluster_size events, so K = N //
+    min_cluster_size rows hold them all; sizes and float32 centroids by
+    `ops.segment`."""
+    n = x.shape[0]
+    with span("dbscan"):
+        pts = torch.stack([x, y], 1).to(torch.float32)
+        res = _grid_or_dense(pts, valid, cfg, _MAX_NEIGHBORS, _MAX_ITERS)
+        k = n // max(cfg.min_cluster_size, 1)
+        centroid, size = segment_mean_points(pts, res.labels, k, res.labels >= 0)
+    return DBSCANSlice(labels=res.labels, core=res.core_mask, num_clusters=res.num_clusters,
+                       iterations=res.iterations, size=size, centroid=centroid)
 
 
 def _dbscan_from_table(nbr_idx: torch.Tensor, counts: torch.Tensor,

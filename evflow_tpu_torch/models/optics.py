@@ -195,27 +195,24 @@ def compute_neighbors_certified(points: np.ndarray, eps: float, min_pts: int,
 # backends (optics.hpp:409-410, 441-520). The device's counterpart is a
 # grid with cells eps wide: every eps-neighborhood lies in the 3^d cells
 # around the query's cell. The bucket size comes from the true largest cell
-# occupancy, counted on the host, so nothing is dropped: the neighbor sets
-# are exact. Distances use the exact difference form over all d
-# coordinates, even where the grid covers only the first g.
+# occupancy, counted on the device and read back (`grid_neighbors`), so nothing
+# is dropped: the neighbor sets are exact. Distances use the exact
+# difference form over all d coordinates, even where the grid covers only
+# the first g.
 
-def _grid_table(pts: torch.Tensor, mins: torch.Tensor, eps: torch.Tensor, dims,
-                bucket: int, min_pts: int, block: int, select_k: int):
-    """The device half of compute_neighbors_grid: cell ids, each point's
-    rank in its cell (a stable sort), the bucket table of coordinates and
-    indices, then per block of rows the 3^g windows' distances, masked at
-    eps, selected (select_k > 0: the select_k nearest, sorted stably by
+def _grid_table(pts: torch.Tensor, cell_coord: torch.Tensor, cell_id: torch.Tensor,
+                rank: torch.Tensor, dims_t: torch.Tensor, strides: torch.Tensor,
+                eps: torch.Tensor, dims, bucket: int, min_pts: int, block: int,
+                select_k: int):
+    """The device half of grid_neighbors, from its cell coordinates, cell
+    ids and ranks in cell: the bucket table of coordinates and indices,
+    then per block of rows the 3^g windows' distances, masked at eps,
+    selected (select_k > 0: the select_k nearest, sorted stably by
     distance) or kept whole (select_k == 0)."""
     n, d = pts.shape
     dev = pts.device
     g = len(dims)
-    ncells = int(np.prod(dims))
-    dims_t = torch.tensor(dims, dtype=torch.int64, device=dev)
-    strides = torch.tensor([int(np.prod(dims[j + 1:])) for j in range(g)],
-                           dtype=torch.int64, device=dev)
-    cell_coord = torch.floor((pts[:, :g] - mins[None, :g]) / eps).to(torch.int64)
-    cell_coord = torch.minimum(torch.clamp_min(cell_coord, 0), dims_t - 1)
-    cell_id = (cell_coord * strides).sum(1)
+    ncells = math.prod(dims)
     offs = torch.tensor(np.stack(np.meshgrid(*([np.array([-1, 0, 1])] * g), indexing="ij"),
                                  axis=-1).reshape(-1, g), dtype=torch.int64, device=dev)
     noff = offs.shape[0]
@@ -223,7 +220,7 @@ def _grid_table(pts: torch.Tensor, mins: torch.Tensor, eps: torch.Tensor, dims,
     in_grid = ((nbr_coord >= 0) & (nbr_coord < dims_t)).all(-1)
     nbr_cells = torch.where(in_grid, (nbr_coord * strides).sum(-1), ncells)
     m = noff * bucket
-    rank, pos = _rank_in_cell(cell_id)
+    pos = torch.arange(n, device=dev)
 
     # bucket table, one row per cell: [x | y (| z ..) | index as f32], each
     # bucket wide; row ncells is the out-of-grid pad (inf coords, -1 index)
@@ -284,64 +281,84 @@ def _rank_in_cell(cell_id: torch.Tensor):
     return torch.empty_like(pos).scatter_(0, sl, pos - run_start), pos
 
 
-def compute_neighbors_grid(points: np.ndarray, eps: float, min_pts: int,
-                           max_neighbors: int = 256, block: int = 4096,
-                           max_bucket: int = 1024,
-                           max_cells: int = 1 << 22,
-                           approx: bool = False,
-                           allow_projected: bool = False,
-                           full_window: bool = False,
-                           full_window_entry_cap: int = 192 << 20,
-                           proj_dims: int = 3,
-                           device="cuda") -> Optional[NeighborTable]:
-    """Grid-bucketed eps-neighborhoods of (N, d) numpy points, computed on
-    `device`; None where the grid does not apply, and the caller takes the
-    dense path: no points, d > 4 without allow_projected, more than
-    max_cells cells, a cell over max_bucket points, a table too large for
-    int32 indices or out of proportion to N, or (selection needed) min_pts
-    above max_neighbors. d <= 4: a grid over all d coordinates; d > 4 with
-    allow_projected: over the first min(proj_dims, 4).
-
-    Rows hold the whole masked 3^g * bucket window, unsorted, when it fits
-    max_neighbors, or with full_window (unless n * window exceeds
-    full_window_entry_cap); otherwise the min(max(max_neighbors, min_pts),
-    N) nearest, sorted by distance, ties in window order. `approx` is
-    accepted for the JAX signature and ignored, as it is on JAX's grid
-    path."""
-    pts_np = np.asarray(points, dtype=np.float32)
-    pts = torch.as_tensor(pts_np, device=device)
-    n, d = pts_np.shape
+def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int,
+                   valid: Optional[torch.Tensor] = None, max_neighbors: int = 256,
+                   block: int = 4096, max_bucket: int = 1024, max_cells: int = 1 << 22,
+                   allow_projected: bool = False, full_window: bool = False,
+                   full_window_entry_cap: int = 192 << 20,
+                   proj_dims: int = 3) -> Optional[NeighborTable]:
+    """compute_neighbors_grid on (N, d) device points: the table of the
+    valid lanes, compacted in order (all lanes without `valid`), or None
+    where the grid does not apply. The decision is made on the device: the
+    cells' extent, their largest occupancy and the valid count are read
+    back as g + 2 integers in one copy, and the points stay where they are.
+    A cell's coordinate is floor((p - min) / eps) in fp32."""
+    n, d = pts.shape
     if n == 0 or (d > 4 and not allow_projected):
         return None
     g = min(d, 4) if d <= 4 else min(proj_dims, 4)
-    # fp32 on the host as on the device, so a point on a cell edge is
-    # counted in the cell the device puts it in
-    mins = pts_np.min(axis=0)
-    cell_coord = np.floor((pts_np[:, :g] - mins[None, :g])
-                          / np.float32(eps)).astype(np.int64)
-    dims = cell_coord.max(axis=0) + 1
-    ncells = int(np.prod(dims))
+    dev = pts.device
+    ok = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid
+    eps_t = torch.full((), eps, dtype=torch.float32, device=dev)
+    mins = torch.where(ok[:, None], pts, torch.inf).amin(0)
+    # an invalid lane sits in cell 0 with id -1: it sorts before every cell
+    # and leaves the ranks of the valid lanes as they are once compacted
+    cell = torch.where(ok[:, None], torch.floor((pts[:, :g] - mins[None, :g]) / eps_t),
+                       0.0).to(torch.int64)
+    dims_t = cell.amax(0) + 1
+    rev = torch.cumprod(torch.flip(dims_t, (0,)), 0)
+    strides = torch.cat([torch.flip(rev, (0,))[1:], torch.ones_like(rev[:1])])
+    cell_id = torch.where(ok, (cell * strides).sum(1), -1)
+    rank, _ = _rank_in_cell(cell_id)
+    occupancy = torch.where(ok, rank, -1).amax() + 1
+    head = torch.cat([dims_t, occupancy[None], ok.sum()[None]]).tolist()
+    dims, count = tuple(head[:g]), head[g + 1]
+    if count == 0:
+        return None
+    ncells = math.prod(dims)
     if ncells > max_cells:
         return None
-    cell_id = np.ravel_multi_index(cell_coord.T, dims)
-    bucket = _next_pow2(int(np.bincount(cell_id, minlength=ncells).max()))
+    bucket = _next_pow2(head[g])
     if bucket > max_bucket:
         return None
     if (ncells + 1) * (d + 1) * bucket >= 2**31 - 1:
         return None
-    if ncells * bucket > max(32 * n, 1 << 20):
+    if ncells * bucket > max(32 * count, 1 << 20):
         return None
     m = (3 ** g) * bucket
-    if full_window and n * m <= full_window_entry_cap:
+    if full_window and count * m <= full_window_entry_cap:
         select_k = 0
     else:
         if m > max_neighbors and min_pts > max_neighbors:
             return None
-        select_k = 0 if m <= max_neighbors else min(max(max_neighbors, min_pts), n)
-    table = _grid_table(pts, torch.as_tensor(mins, device=pts.device),
-                        torch.tensor(eps, dtype=torch.float32, device=pts.device),
-                        tuple(int(v) for v in dims), bucket, min_pts, block, select_k)
-    return NeighborTable(*table)
+        select_k = 0 if m <= max_neighbors else min(max(max_neighbors, min_pts), count)
+    if count < n:
+        keep = ok.nonzero()[:, 0]
+        pts, cell, cell_id, rank = pts[keep], cell[keep], cell_id[keep], rank[keep]
+    return NeighborTable(*_grid_table(pts, cell, cell_id, rank, dims_t, strides, eps_t,
+                                      dims, bucket, min_pts, block, select_k))
+
+
+def compute_neighbors_grid(points: np.ndarray, eps: float, min_pts: int, *,
+                           approx: bool = False, device="cuda",
+                           **kw) -> Optional[NeighborTable]:
+    """Grid-bucketed eps-neighborhoods of (N, d) numpy points, computed on
+    `device` (`grid_neighbors`, whose limits `kw` are); None where the grid
+    does not apply, and the caller takes the dense path: no points, d > 4
+    without allow_projected, more than max_cells cells, a cell over
+    max_bucket points, a table too large for int32 indices or out of
+    proportion to N, or (selection needed) min_pts above max_neighbors.
+    d <= 4: a grid over all d coordinates; d > 4 with allow_projected: over
+    the first min(proj_dims, 4).
+
+    Rows hold the whole masked 3^g * bucket window, unsorted, when it fits
+    max_neighbors (256), or with full_window (unless n * window exceeds
+    full_window_entry_cap); otherwise the min(max(max_neighbors, min_pts),
+    N) nearest, sorted by distance, ties in window order. `approx` is
+    accepted for the JAX signature and ignored, as it is on JAX's grid
+    path."""
+    pts = torch.as_tensor(np.asarray(points, dtype=np.float32), device=device)
+    return grid_neighbors(pts, eps, min_pts, **kw)
 
 
 # --------------------------------------------------------------------------

@@ -13,7 +13,9 @@
   scatter into q stacked surfaces;
 - `corner_track_step_event_exact`: the per-event-exact detector, the
   reference semantics the q > 1 path is measured against;
-- `full_scan`: both chains per slice over a slice sequence — the main path.
+- `full_scan`: both chains per slice over a slice sequence — the main path;
+- `dbscan_scan`: app C's DBSCAN on each slice's event pixels
+  (`dbscan.dbscan_slice`).
 
 The JAX package's `lax.scan` over slices is an eager Python loop here.
 Each iteration of a loop over slices is a `slice` span (`utils/profiling`),
@@ -34,7 +36,7 @@ from ..io.slicing import slice_by_count, slice_by_time
 
 from ..ops import efast, hash_dedup, nms as nms_ops, sae as sae_ops
 from ..utils.profiling import span, spanned
-from . import aeclustering, aeclustering_kernel, fastcluster, tracker as tracker_mod
+from . import aeclustering, aeclustering_kernel, dbscan, fastcluster, tracker as tracker_mod
 
 
 def _as_tensors(device, *arrays):
@@ -551,3 +553,19 @@ def full_scan(cl_state, co_state, xs, ys, ts, valids, cfg: EngineConfig = DEFAUL
         cl_outs.append(cl_out)
         co_outs.append(co_out)
     return (cl_state, co_state), (_stack(cl_outs), _stack(co_outs))
+
+
+# --------------------------------------------------------------------------
+# DBSCAN per slice (app C)
+# --------------------------------------------------------------------------
+
+def dbscan_scan(state, xs, ys, ts, valids, cfg: EngineConfig = DEFAULT):
+    """App C's DBSCAN (cfg.dbscan) on each of (S, N) slices in order, the
+    (x, y) pixels of its valid events; `ts` is not read. DBSCAN carries
+    nothing from one slice to the next, so the state is the int32 count of
+    slices run. Returns (state + S, stacked dbscan.DBSCANSlice)."""
+    outs = []
+    for s in range(xs.shape[0]):
+        with span("slice"):
+            outs.append(dbscan.dbscan_slice(xs[s], ys[s], valids[s], cfg.dbscan))
+    return state + xs.shape[0], _stack(outs)

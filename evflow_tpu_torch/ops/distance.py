@@ -65,7 +65,7 @@ def radius_neighbor_counts(points: torch.Tensor, eps: float,
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=points.device)
     pts = points.to(torch.float32)
-    eps2 = torch.tensor(eps * eps, dtype=torch.float32, device=pts.device)
+    eps2 = torch.full((), eps * eps, dtype=torch.float32, device=pts.device)
     out = []
     for i in range(0, n, block):
         d2 = pairwise_sqdist(pts[i:i + block], pts)

@@ -9,7 +9,7 @@ Usage:
   python -m evflow_tpu_torch.run kmeans         [--n 2048]                       # app D
   python -m evflow_tpu_torch.run sampling       --input ev.csv                   # app F
   python -m evflow_tpu_torch.run optics         --input ev.csv [--eps 10]        # app B
-  python -m evflow_tpu_torch.run dbscan         --input ev.csv [--eps 20]        # app C
+  python -m evflow_tpu_torch.run dbscan         --input ev.csv [--eps 20] [--per-slice]  # app C
   python -m evflow_tpu_torch.run temporal       --input ev.csv [--windows 2 --tiles 4 | --exact]
 
 Every subcommand runs on the card (`--device cuda`, the default) unless
@@ -23,9 +23,10 @@ torchrun the world must be windows x tiles, and outside it only a 1 x 1
 grid runs.
 
 The per-slice subcommands (cluster-flow, track-estimate, corner-track,
-temporal) take `--trace DIR`: the run is recorded with torch.profiler and
-written to DIR/trace.json as a Chrome trace, with the program's spans (each
-slice, module and fixpoint round, `utils/profiling.py`) on the card's clock.
+temporal, dbscan --per-slice) take `--trace DIR`: the run is recorded with
+torch.profiler and written to DIR/trace.json as a Chrome trace, with the
+program's spans (each slice, module and fixpoint round,
+`utils/profiling.py`) on the card's clock.
 Under torchrun rank 0 writes DIR/trace.json and rank r DIR/rank<r>/trace.json.
 """
 
@@ -254,12 +255,21 @@ def cmd_optics(args):
 
 def cmd_dbscan(args):
     """App C: [PCD read → voxel grid → RANSAC plane removal →] DBSCAN →
-    CSV/PCD export with per-cluster intensity (pcl_cluster.cpp pipeline)."""
+    CSV/PCD export with per-cluster intensity (pcl_cluster.cpp pipeline).
+    With --per-slice, on event input: DBSCAN of each slicing.n_events slice
+    (`pipeline.dbscan_scan`), one line per slice and one per cluster."""
     from .config import DBSCANConfig
     from .models.dbscan import dbscan_grid
     from .models.pointcloud import voxel_downsample, ransac_plane, remove_plane
     from .utils import pcd as pcdio
     dev = args.device
+    cfg = DBSCANConfig(eps=args.eps, core_min_pts=args.min_pts,
+                       min_cluster_size=args.min_cluster_size)
+    if args.per_slice:
+        if args.input.endswith(".pcd") or args.sharded or args.export:
+            sys.exit("error: --per-slice clusters the slices of an event stream on one "
+                     "device; it takes no .pcd input, --sharded or --export")
+        return _dbscan_per_slice(args, cfg)
 
     if args.input.endswith(".pcd"):
         pts3, _ = pcdio.load_pcd(args.input)
@@ -278,8 +288,6 @@ def cmd_dbscan(args):
     else:
         s = _load(args)
         pts = np.stack([s.x, s.y], axis=1).astype(np.float32)
-    cfg = DBSCANConfig(eps=args.eps, core_min_pts=args.min_pts,
-                       min_cluster_size=args.min_cluster_size)
     if getattr(args, "sharded", False):
         # dense row panels split over the process group's ranks
         # (parallel/batch.py; one rank outside torchrun)
@@ -301,6 +309,25 @@ def cmd_dbscan(args):
             with open(args.export, "w") as f:
                 for row, l in zip(pts, labels):
                     f.write(",".join(f"{v}" for v in row) + f",{l}\n")
+
+
+def _dbscan_per_slice(args, cfg):
+    from .config import DEFAULT
+    from .io import slice_by_count
+    from .models.pipeline import dbscan_scan
+    dev = args.device
+    sl = slice_by_count(_load(args), DEFAULT.slicing.n_events)
+    xs, ys, vs = (_tensor(a, dev) for a in (sl.x, sl.y, sl.valid_mask()))
+    state = torch.zeros((), dtype=torch.int32, device=dev)
+    _, out = dbscan_scan(state, xs, ys, None, vs, DEFAULT.replace(dbscan=cfg))
+    k, it = out.num_clusters.cpu().numpy(), out.iterations.cpu().numpy()
+    size, cen = out.size.cpu().numpy(), out.centroid.cpu().numpy()
+    for i in range(sl.num_slices):
+        print(f"slice {i}: events={int(sl.count[i])} clusters={int(k[i])} "
+              f"iterations={int(it[i])}")
+        for c in range(int(k[i])):
+            print(f"  cluster {c}: size={int(size[i, c])} "
+                  f"centroid=({cen[i, c, 0]:.2f},{cen[i, c, 1]:.2f})")
 
 
 def cmd_temporal(args):
@@ -447,7 +474,10 @@ def parser() -> argparse.ArgumentParser:
                    help="use xi steep-area extraction with this chi instead "
                         "of the reachability threshold")
     p.add_argument("--export", default="")
-    p = add("dbscan", cmd_dbscan)
+    p = add_trace(add("dbscan", cmd_dbscan))
+    p.add_argument("--per-slice", action="store_true",
+                   help="on event input, cluster each slicing.n_events slice "
+                        "(pipeline.dbscan_scan) and print one line per slice")
     p.add_argument("--sharded", action="store_true",
                    help="O(N^2) panels row-split over the process group's ranks")
     p.add_argument("--eps", type=float, default=20.0)

@@ -133,6 +133,8 @@ def test_cli_corner_track(small_stream, capsys):
 
 
 TEMPORAL_1X1 = ["temporal", "--windows", "1", "--tiles", "1", "--warmup", "2"]
+# eps 3 px: the one blob's neighbourhoods fit the grid's table
+DBSCAN_SMALL = ["--eps", "3", "--min-pts", "5", "--min-cluster-size", "50"]
 TRACED = {
     # argv, slices run per slice printed beyond it (temporal's warm-up),
     # spans the trace must hold besides `slice`
@@ -141,6 +143,8 @@ TRACED = {
     "temporal": (TEMPORAL_1X1, 2, {"dedup", "fastcluster", "sae", "efast", "nms",
                                    "nms.round", "tracker"}),
     "temporal-exact": (TEMPORAL_1X1 + ["--exact"], 2, {"dedup", "exact_engine"}),
+    "dbscan-per-slice": (["dbscan", "--per-slice"] + DBSCAN_SMALL, 0,
+                         {"dbscan", "dbscan.table", "dbscan.round"}),
 }
 
 
@@ -162,6 +166,31 @@ def test_cli_trace_writes_slice_spans(case, small_stream, capsys, tmp_path):
                   for ln in out.splitlines())
     assert names.count("slice") == printed + warm > warm
     assert spans <= set(names), spans - set(names)
+
+
+def test_cli_dbscan_per_slice(small_stream, capsys):
+    """`dbscan --per-slice` prints each slice's clusters as dbscan_grid finds
+    them on that slice's events, largest first."""
+    from evflow_tpu_torch.config import DEFAULT, DBSCANConfig
+    from evflow_tpu_torch.io import load, slice_by_count
+    from evflow_tpu_torch.models.dbscan import dbscan_grid
+    out = _run(main, ["dbscan", "--per-slice", "--input", small_stream] + DBSCAN_SMALL + CPU,
+               capsys)
+    sl = slice_by_count(load(small_stream), DEFAULT.slicing.n_events)
+    want = []
+    for i in range(sl.num_slices):
+        n = int(sl.count[i])
+        pts = np.stack([sl.x[i, :n], sl.y[i, :n]], 1).astype(np.float32)
+        res = dbscan_grid(pts, DBSCANConfig(eps=3.0, core_min_pts=5, min_cluster_size=50),
+                          device="cpu")
+        labels, k = res.labels.numpy(), int(res.num_clusters)
+        want.append(f"slice {i}: events={n} clusters={k} iterations={int(res.iterations)}")
+        for c in range(k):
+            m = pts[labels == c]
+            want.append(f"  cluster {c}: size={len(m)} "
+                        f"centroid=({m[:, 0].mean():.2f},{m[:, 1].mean():.2f})")
+    assert k > 0
+    assert_lines_match(out, "\n".join(want))
 
 
 def test_cli_optics_chi_and_plots(tmp_path, capsys):
