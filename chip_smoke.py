@@ -45,7 +45,15 @@ Phases, one line each:
      serial and stack in the order serial, stack, stack, serial;
   9. k-means (`kmeans_phase`), 10. DBSCAN dense and grid (`dbscan_phase`),
      11. app C's point-cloud chain (`pointcloud_phase`): each against its
-     CPU run, with ms per call;
+     CPU run, with ms per call; 10b. DBSCAN's eps kernel
+     (`dbscan_eps_phase`, csrc/dbscan_eps.cu): its launches in
+     `pipeline.dbscan_scan` on the DEFAULT slices and on 4 slices of the
+     benchmark's textured scene, rounds + 2 per dense slice; both modes
+     (the core counts; a propagation round's lowest core label) bit-equal
+     to one pass of the plain panels on the card at D = 3 (app C's cloud)
+     and on slice 3's 16384 events, with its eager, device, launch-floor
+     and plain times beside its bound, and a JSON entry in the per-kernel
+     line (`launches`: those of the two scans);
  12. OPTICS, app B (`optics_phase`, a line per case):
      compute_reachability_dists through method "auto" in four cases: slice 3's unique pixels at the
      reference driver's eps 10, min_pts 2 (then the threshold-10 split),
@@ -110,7 +118,8 @@ type, both counted from this run's shapes and data (`kernel_bounds`). Its
 grid can go, however small its bound. The exact engine is serial, so it
 also gets `latency_floor_ms`: its events times the shortest dependent
 chain per event. Its `library_ms` is null: no
-single PyTorch call computes any of the four functions. cluster_stats'
+single PyTorch call computes any of the kernels' functions. The last entry
+is dbscan_eps's, from phase 10b (its `min_label_*` keys: the second mode). cluster_stats'
 entry also has `max_abs_err_k_after`, `k_after_ms`, `k_after_plain_ms`
 and `k_after_device_ms`: the same against its plain version with a
 nonzero k_after (the later tiles' counts of the tiled update). The stencil's
@@ -127,6 +136,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -460,6 +470,135 @@ def dbscan_phase(dev, card, x, y, valid, cfg) -> str:
             f"row {widest}, no fall-back, {int(g.num_clusters)} clusters, "
             f"{int(g.iterations)} iterations, bit-equal to the CPU, partition equal to dense "
             f"dbscan's, {few_ms(grid):.3f} ms per call")
+
+
+# every (row, point) pair of dbscan_eps.cu at D = 2: mul, mul, add for the
+# cross term, the squared norms' add, the x2, the sub, the compare
+DBSCAN_EPS_OPS_PER_PAIR = 7
+DBSCAN_TEXTURED_SLICES = 4    # slices of the benchmark's textured scene in phase 10b
+
+
+@contextlib.contextmanager
+def recorded_dense(rounds: list):
+    """Within it, each dense dbscan call (the fallback of dbscan_slice)
+    appends its propagation rounds to `rounds`."""
+    from evflow_tpu_torch.models import dbscan
+    saved = dbscan.dbscan
+
+    def dense(*args, **kwargs):
+        res = saved(*args, **kwargs)
+        rounds.append(int(res.iterations))
+        return res
+
+    dbscan.dbscan = dense
+    try:
+        yield
+    finally:
+        dbscan.dbscan = saved
+
+
+def counted_dbscan_scan(dev, xs, ys, ts, vs, cfg) -> tuple:
+    """pipeline.dbscan_scan, the benchmark cell's path, on (S, N) slices on
+    the card with the launch counts zeroed: (dbscan_eps launches, the dense
+    slices' rounds). Each dense slice launches the kernel rounds + 2 times
+    (the core counts, one per round, the border attachment), a grid slice
+    none."""
+    from evflow_tpu_torch import kernels
+    from evflow_tpu_torch.models import pipeline
+    rounds = []
+    kernels.reset_launches()
+    with recorded_dense(rounds):
+        _, out = pipeline.dbscan_scan(torch.zeros((), dtype=torch.int32, device=dev),
+                                      xs, ys, ts, vs, cfg)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["dbscan_eps"]
+    assert launches == sum(r + 2 for r in rounds), (launches, rounds)
+    assert not Counter(rounds) - Counter(out.iterations.tolist()), (rounds, out.iterations)
+    return launches, rounds
+
+
+def dbscan_eps_phase(dev, card, xs, ys, ts, vs, cfg) -> dict:
+    """Phase 10b: csrc/dbscan_eps.cu. Its launches on the main path:
+    pipeline.dbscan_scan on the DEFAULT slices and on slices of the
+    benchmark's textured scene, rounds + 2 per dense slice. Then on slice
+    3's events, parked and flagged as dense dbscan hands them over, count
+    mode (the core counts) and min-label mode (a propagation round from the
+    first labels), each bit-equal to the plain (2048, N) panels on the
+    card, and both modes at D = 3 on app C's cloud. Times per call at D =
+    2: eager (CUDA events around back-to-back calls), device (CUDA graph
+    replay), the launch floor at the kernel's grid, and the plain panels'
+    one pass; the bound is 7 fp32 operations per pair at 67 TFLOP/s.
+    Returns the kernel's entry for the per-kernel JSON line."""
+    from evflow_tpu_torch import kernels
+    from evflow_tpu_torch.io import slice_by_count, synthetic
+    from evflow_tpu_torch.models import dbscan
+    from evflow_tpu_torch.ops import distance
+    dcfg = cfg.dbscan
+    eps, n = dcfg.eps, xs.shape[1]
+    tex = slice_by_count(synthetic.textured_field_stream(
+        num_slices=DBSCAN_TEXTURED_SLICES, events_per_slice=n, seed=SEED), n, drop_partial=True)
+    txs, tys, tts, tvs = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                          for a in (tex.x, tex.y, (tex.t - int(tex.t.min())).astype(np.int32),
+                                    tex.valid_mask()))
+    scans = {"DEFAULT": counted_dbscan_scan(dev, xs, ys, ts, vs, cfg),
+             "textured": counted_dbscan_scan(dev, txs, tys, tts, tvs, cfg)}
+    assert scans["textured"][1], "no textured slice took the dense path"
+    launches = sum(k for k, _ in scans.values())
+
+    def cases(pts, valid):
+        counts = distance.eps_counts(pts, pts, eps, valid, valid)
+        core = valid & (counts >= dcfg.core_min_pts)
+        labels = torch.where(core, torch.arange(pts.shape[0], dtype=torch.int32, device=dev),
+                             distance.NO_LABEL)
+        return {"count": ((pts, pts, eps, valid, valid), distance.eps_counts,
+                          distance.eps_counts_plain),
+                "min-label": ((pts, pts, eps, labels, core, labels, core),
+                              distance.eps_min_label, distance.eps_min_label_plain)}, core
+
+    cloud = pointcloud_scene()
+    cloud = torch.as_tensor(cloud[cloud[:, 2] > 0.35], device=dev)
+    cloud_cases, _ = cases(cloud, torch.ones(cloud.shape[0], dtype=torch.bool, device=dev))
+    for mode, (args, fn, plain) in cloud_cases.items():
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"dbscan_eps 3-D {mode}: {int((got != want).sum())} differ"
+
+    x, y, valid = xs[3], ys[3], vs[3]
+    pts = torch.where(valid[:, None], torch.stack([x, y], 1).to(torch.float32), dbscan._FAR)
+    modes, core = cases(pts, valid)
+    rows_per_cta, threads = 64, 256
+    grid = (-(-n // rows_per_cta), threads, 1)
+    floor = device_ms(lambda: kernels.launch_floor(*grid))
+    b = bound(24 * n, DBSCAN_EPS_OPS_PER_PAIR * n * n, 0,
+              f"{n} x {n} pairs x {DBSCAN_EPS_OPS_PER_PAIR} fp32 ops; x, y and a flag or "
+              "label in per row and per point, one int32 out per row")
+    entry, parts = None, []
+    for mode, (args, fn, plain) in modes.items():
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"dbscan_eps {mode}: {int((got != want).sum())} rows differ"
+        r = dict(ms=cuda_ms(lambda: fn(*args)), device_ms=device_ms(lambda: fn(*args)),
+                 plain_ms=few_ms(lambda: plain(*args)))
+        parts.append(f"{mode}: {r['ms']:.4f} ms eager, {r['device_ms']:.5f} device "
+                     f"({100 * b['bound_ms'] / r['device_ms']:.1f} % of the bound), plain "
+                     f"panels {r['plain_ms']:.3f} ms per pass")
+        if entry is None:
+            entry = dict(name="dbscan_eps", route="cuda",
+                         source="evflow_tpu_torch/csrc/dbscan_eps.cu",
+                         replaces="none (evflow_tpu/models/dbscan.py is plain XLA)",
+                         max_abs_err=0.0, launches=launches, bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"], library_ms=None, launch_floor_ms=floor, **r)
+        else:
+            entry.update({f"min_label_{k}": v for k, v in r.items()})
+    print(f"dbscan_eps on {card}: launches in dbscan_scan, rounds + 2 per dense slice: " + "; ".join(
+        f"{name} {xs_.shape[0]} slices, {len(r)} dense (rounds {r}), {k} launches"
+        for (name, (k, r)), xs_ in zip(scans.items(), (xs, txs)))
+        + f"; both modes bit-equal to the panels at D = 3 on app C's {cloud.shape[0]} blob "
+        f"points and at D = 2 on slice 3's {n} events ({int(valid.sum())} valid, "
+        f"{int(core.sum())} core); " + "; ".join(parts)
+        + f"; launch floor {floor:.5f} ms at grid {grid}; bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']} ({b['bound_basis']})", flush=True)
+    return entry
 
 
 # app C's scene: 2^17 points, a plane z = 0.3 (3/4 of them, 1 x 1 m, noise
@@ -1744,6 +1883,7 @@ def main() -> int:
     # ---- 9-12. k-means, DBSCAN, the point-cloud chain, OPTICS
     print(kmeans_phase(dev, card, xs[3], ys[3], vs[3]), flush=True)
     print(dbscan_phase(dev, card, xs[3], ys[3], vs[3], cfg), flush=True)
+    dbscan_eps_entry = dbscan_eps_phase(dev, card, xs, ys, ts, vs, cfg)
     print(pointcloud_phase(dev, card), flush=True)
     optics_phase(dev, card, xs[3], ys[3], vs[3], cfg)
 
@@ -1779,7 +1919,7 @@ def main() -> int:
              "all_tiles_launch_floor_ms": bounds[name]["launch_floor_ms"]}
             if name == "efast_stencil" else {}),
          **{k: v for k, v in r.items() if k.startswith(("k_after_", "max_abs_err_k"))}}
-        for name, r in results.items()]}))
+        for name, r in results.items()] + [dbscan_eps_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,12 +11,17 @@ rounds ran. Sizes outside [min_cluster_size, max_cluster_size] are
 filtered, then clusters are numbered by size, largest first, ties by the
 lower root index.
 
-`dbscan` computes (block, N) distance panels by `ops.distance`'s
-matmul-free form: on integer pixel coordinates every term is exact, so
-labels, core masks and iteration counts are the same bits on the card, on
-the CPU and in JAX. `dbscan_grid` precomputes the neighbor table with
-OPTICS' grid (`optics.grid_neighbors`) and propagates over it; it takes
-the dense path where JAX does: no table, or a row over the table's width.
+`dbscan` tests eps-neighbourhoods by `ops.distance`'s matmul-free form:
+core counts (`eps_counts`), then each propagation round and the border
+attachment as a lowest core label within eps (`eps_min_label`). On the
+card (D = 2 or 3: event pixels or point clouds) each is one launch of
+csrc/dbscan_eps.cu over all rows, the same bits as the panels on any
+float32 input; on the CPU, (block, N) distance panels. On integer pixel coordinates
+every term is exact, so labels, core masks and iteration counts are the
+same bits on the card, on the CPU and in JAX. `dbscan_grid` precomputes
+the neighbor table with OPTICS' grid (`optics.grid_neighbors`) and
+propagates over it; it takes the dense path where JAX does: no table, or a
+row over the table's width.
 
 `dbscan_slice` is app C on one slice of an event stream already on the
 device: the (x, y) pixels of its valid events, duplicates kept, by
@@ -36,12 +41,11 @@ import numpy as np
 import torch
 
 from ..config import DBSCANConfig
-from ..ops.distance import pairwise_sqdist, radius_neighbor_counts
+from ..ops.distance import NO_LABEL, eps_counts, eps_min_label
 from ..ops.segment import segment_mean_points
 from ..utils.profiling import span
 from . import optics
 
-_BIG = 2**31 - 1
 _MAX_NEIGHBORS = 256   # the grid table's width
 _MAX_ITERS = 64        # propagation rounds at most
 _FAR = 1e30   # invalid lanes are parked here: their distances overflow to inf or nan
@@ -54,27 +58,17 @@ class DBSCANResult(NamedTuple):
     iterations: torch.Tensor    # int32 () propagation rounds used
 
 
-def _neighbor_min_label(rows, points, labels, core, eps2, block):
-    """nmin[i] = the lowest label of a core point of `points` within eps of
-    rows[i], or _BIG, one (block, N) panel at a time. Each row's result
-    depends on that row alone (parallel/batch.py takes row blocks)."""
-    lab_src = torch.where(core, labels, _BIG)[None, :]
-    out = [torch.where(pairwise_sqdist(rows[i:i + block], points) <= eps2,
-                       lab_src, _BIG).amin(1)
-           for i in range(0, rows.shape[0], block)]
-    return torch.cat(out) if out else torch.full((0,), _BIG, dtype=labels.dtype,
-                                                  device=labels.device)
-
-
-def _propagate(labels, core, nmin_of, max_iters):
+def _propagate(labels, step, max_iters):
     """Min-label propagation over the cores with pointer jumping (each
     round's jump reads that round's labels), while a label changed and
-    fewer than max_iters rounds ran. Returns (labels, rounds)."""
+    fewer than max_iters rounds ran. `step(labels)` is a round's
+    where(core, min(labels, lowest core label within eps), labels).
+    Returns (labels, rounds)."""
     n = labels.shape[0]
     it, changed = 0, True
     while changed and it < max_iters:
         with span("dbscan.round"):
-            new = torch.where(core, torch.minimum(labels, nmin_of(labels)), labels)
+            new = step(labels)
             jumped = torch.where(new < n, new[new.clamp(0, n - 1).long()], new)
             new = torch.minimum(new, jumped)
             changed = bool((new != labels).any())
@@ -109,22 +103,23 @@ def dbscan(points: torch.Tensor, valid: torch.Tensor | None = None,
            cfg: DBSCANConfig = DBSCANConfig(), block: int = 2048,
            max_iters: int = 64) -> DBSCANResult:
     """(N, D) points -> cluster labels, on the points' device; invalid lanes
-    get -1. Distances in (block, N) panels."""
+    get -1. On the card one kernel launch per pass, on the CPU (block, N)
+    distance panels (`ops.distance`); `block` sizes the panels only."""
     n = points.shape[0]
     dev = points.device
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=dev)
     pts = torch.where(valid[:, None], points.to(torch.float32), _FAR)
-    eps2 = torch.full((), cfg.eps * cfg.eps, dtype=torch.float32, device=dev)
-    counts = radius_neighbor_counts(pts, cfg.eps, valid, block)
+    counts = eps_counts(pts, pts, cfg.eps, valid, valid, block)
     core = valid & (counts >= cfg.core_min_pts)
-    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), _BIG)
+    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), NO_LABEL)
 
-    def nmin_of(lab):
-        return _neighbor_min_label(pts, pts, lab, core, eps2, block)
+    def step(lab):
+        return eps_min_label(pts, pts, cfg.eps, lab, core, lab, core, block)
 
-    labels, it = _propagate(labels, core, nmin_of, max_iters)
-    labels = torch.where(core, labels, torch.where(valid, nmin_of(labels), _BIG))
+    labels, it = _propagate(labels, step, max_iters)
+    nmin = eps_min_label(pts, pts, cfg.eps, labels, core, block=block)
+    labels = torch.where(core, labels, torch.where(valid, nmin, NO_LABEL))
     return _finish(labels, core, it, cfg)
 
 
@@ -199,12 +194,15 @@ def _dbscan_from_table(nbr_idx: torch.Tensor, counts: torch.Tensor,
     core = counts >= cfg.core_min_pts
     valid_nbr = nbr_idx >= 0
     idx_c = nbr_idx.clamp(0, n - 1).long()
-    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), _BIG)
+    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), NO_LABEL)
 
     def nmin_of(lab):
-        src = torch.where(core, lab, _BIG)
-        return torch.where(valid_nbr, src[idx_c], _BIG).amin(1)
+        src = torch.where(core, lab, NO_LABEL)
+        return torch.where(valid_nbr, src[idx_c], NO_LABEL).amin(1)
 
-    labels, it = _propagate(labels, core, nmin_of, max_iters)
+    def step(lab):
+        return torch.where(core, torch.minimum(lab, nmin_of(lab)), lab)
+
+    labels, it = _propagate(labels, step, max_iters)
     labels = torch.where(core, labels, nmin_of(labels))
     return _finish(labels, core, it, cfg)

@@ -14,9 +14,11 @@ iteration needs anyway.
     the difference form) for the rank's rows; the rows come back to every
     rank by all_gather. Every row is bit-equal to the one-rank table.
   - dbscan_sharded: core counts, min-label propagation rounds and border
-    attachment on row panels (`dbscan._neighbor_min_label`); each round
-    all_gathers the (N,) label vector and all-reduces the changed flag.
-    Labels are bit-equal to `dbscan.dbscan` (integer minima).
+    attachment for the rank's rows (`ops.distance.eps_counts` and
+    `eps_min_label`: on the card one launch of csrc/dbscan_eps.cu over the
+    row block, on the CPU (block, N) panels); each round all_gathers
+    the (N,) label vector and all-reduces the changed flag. Labels are
+    bit-equal to `dbscan.dbscan` (integer minima).
   - kmeans_sharded: assignment (`ops.distance.assign_to_centers`) on the
     rank's rows; the centroid update all-reduces the per-rank (sum, count)
     partials. The sum of partials reorders the float sums, so centroids
@@ -40,10 +42,10 @@ import torch
 import torch.distributed as dist
 
 from ..config import DBSCANConfig, KMeansConfig
-from ..models.dbscan import _BIG, _FAR, DBSCANResult, _finish, _neighbor_min_label
+from ..models.dbscan import _FAR, DBSCANResult, _finish
 from ..models.kmeans import KMeansResult
 from ..models.optics import NeighborTable, _dense_rows
-from ..ops.distance import assign_to_centers, pairwise_sqdist
+from ..ops.distance import NO_LABEL, assign_to_centers, eps_counts, eps_min_label
 from ..ops.segment import masked_segment_sum, segment_counts
 
 
@@ -109,23 +111,16 @@ def compute_neighbors_sharded(points: np.ndarray, eps: float, min_pts: int,
 
 
 # --------------------------------------------------------------------------
-# DBSCAN (models/dbscan.dbscan with row-block panels)
+# DBSCAN (models/dbscan.dbscan on the rank's row block)
 # --------------------------------------------------------------------------
-
-def _row_counts(rows, pts, valid, eps2, block):
-    """int32 count of the valid points within eps of each row."""
-    out = [((pairwise_sqdist(rows[i:i + block], pts) <= eps2) & valid[None, :])
-           .sum(1, dtype=torch.int32) for i in range(0, rows.shape[0], block)]
-    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int32, device=pts.device)
-
 
 def dbscan_sharded(points, valid: Optional[torch.Tensor] = None,
                    cfg: DBSCANConfig = DBSCANConfig(), group=None,
                    max_iters: int = 64, block: int = 2048,
                    device="cuda") -> DBSCANResult:
     """dbscan.dbscan of (N, D) points (a tensor or array, moved to
-    `device`) with its panels (core counts, min-label propagation, border
-    attachment) on the rank's row block. Bit-equal labels."""
+    `device`) with its eps tests (core counts, min-label propagation,
+    border attachment) on the rank's row block. Bit-equal labels."""
     points = torch.as_tensor(points, device=device)
     n = points.shape[0]
     dev = points.device
@@ -139,31 +134,27 @@ def dbscan_sharded(points, valid: Optional[torch.Tensor] = None,
     rows = _pad_rows(pts, size * nl, _FAR)[lo:lo + nl]
     vl = _pad_rows(valid, size * nl, False)[lo:lo + nl]
     gid = lo + torch.arange(nl, dtype=torch.int32, device=dev)
-    eps2 = torch.tensor(cfg.eps * cfg.eps, dtype=torch.float32, device=dev)
 
     def gather(t):
         return _all_gather(t, group, size)[:n]
 
-    cnt_l = torch.where(vl, _row_counts(rows, pts, valid, eps2, block), 0)
+    cnt_l = eps_counts(rows, pts, cfg.eps, valid, vl, block)
     core_l = vl & (cnt_l >= cfg.core_min_pts) & (gid < n)
     core = gather(core_l)
-    lab_l = torch.where(core_l, gid, _BIG)
-
-    def nmin_of(labels):
-        return _neighbor_min_label(rows, pts, labels, core, eps2, block)
+    lab_l = torch.where(core_l, gid, NO_LABEL)
 
     # _propagate's rounds, each reading the whole label vector
     it, changed = 0, True
     while changed and it < max_iters:
-        new = torch.where(core_l, torch.minimum(lab_l, nmin_of(gather(lab_l))), lab_l)
+        new = eps_min_label(rows, pts, cfg.eps, gather(lab_l), core, lab_l, core_l, block)
         full_new = gather(new)
         jumped = torch.where(new < n, full_new[new.clamp(0, n - 1).long()], new)
         new = torch.minimum(new, jumped)
         changed = bool(_all_reduce_sum((new != lab_l).any().to(torch.int32)[None], group) > 0)
         lab_l = new
         it += 1
-    lab_l = torch.where(core_l, lab_l,
-                        torch.where(vl & (gid < n), nmin_of(gather(lab_l)), _BIG))
+    border = eps_min_label(rows, pts, cfg.eps, gather(lab_l), core, block=block)
+    lab_l = torch.where(core_l, lab_l, torch.where(vl & (gid < n), border, NO_LABEL))
     return _finish(gather(lab_l), core, it, cfg)
 
 

@@ -19,8 +19,8 @@ from evflow_tpu_torch.config import (DEFAULT, ClusterConfig, EFastConfig, NMSCon
                                      SensorConfig, SliceConfig, TrackerConfig)
 from evflow_tpu_torch.io import slice_by_count, synthetic
 from evflow_tpu_torch.models import aeclustering as ae, aeclustering_kernel as aek
-from evflow_tpu_torch.models import fastcluster, pipeline
-from evflow_tpu_torch.ops import cluster_kernels as ck, efast
+from evflow_tpu_torch.models import dbscan, fastcluster, pipeline
+from evflow_tpu_torch.ops import cluster_kernels as ck, distance, efast
 
 from test_torch_streams import STREAMS, drifting_blobs
 
@@ -355,7 +355,8 @@ def test_full_scan_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     (gcl, gco), (gclo, gcoo) = scan(cuda)
     assert kernels.LAUNCHES == {"efast_stencil": 6, "efast_ring": 0, "assign_manhattan": 6,
-                                "cluster_stats": 6, "aeclustering_exact": 0}, kernels.LAUNCHES
+                                "cluster_stats": 6, "aeclustering_exact": 0,
+                                "dbscan_eps": 0}, kernels.LAUNCHES
     (wcl, wco), (wclo, wcoo) = scan("cpu")
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
     interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
@@ -460,7 +461,9 @@ def test_kmeans_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("block", [2048, 333])
 def test_dbscan_on_card_bit_equal_on_pixels(cuda, block):
     """Dense DBSCAN on integer pixels: labels, clusters, core mask and
-    iterations the same bits as on the CPU."""
+    iterations the same bits as on the CPU. `block` sizes the CPU's
+    panels; the card's kernel takes no block, so there both cases run it
+    alike."""
     from evflow_tpu_torch.config import DBSCANConfig
     from evflow_tpu_torch.models import dbscan
     pts = _pixel_cloud(2)
@@ -471,6 +474,119 @@ def test_dbscan_on_card_bit_equal_on_pixels(cuda, block):
     ref = dbscan.dbscan(torch.as_tensor(pts), torch.as_tensor(valid), cfg=cfg, block=block)
     interop.assert_trees_close(got, ref, rtol=0, atol=0)
     assert int(got.num_clusters) == 3
+
+
+def _eps_case(kind):
+    """(rows, points, eps, point flags, row flags) of one eps-kernel case:
+    rows are a slice of the points, as in dbscan_sharded's row block."""
+    rng = np.random.default_rng(21)
+    lo, hi, eps = 0, None, 20.0
+    if kind == "floats":          # non-integer: an FMA contraction shows
+        pts = (rng.uniform(0, 300, (5000, 2)) * 1.37).astype(np.float32)
+        eps = 7.3
+    elif kind == "parked":        # invalid lanes at _FAR: NaN pairs between them
+        pts = _pixel_cloud(22, 4000)
+    elif kind == "at-eps":        # integer pairs at exactly eps: (0,0)-(12,16) at eps 20
+        base = rng.integers(0, 400, (600, 2))
+        offs = np.array([[12, 16], [16, 12], [20, 0], [0, 20], [-12, 16], [16, -12]])
+        pts = np.concatenate([base] + [base + o for o in offs]).astype(np.float32)
+    elif kind == "duplicates":    # many points on few pixels
+        pts = rng.integers(0, 30, (4000, 2)).astype(np.float32)
+    elif kind == "ragged":        # N not a multiple of the tile
+        pts = _pixel_cloud(23, 16384 - 37)
+    elif kind == "row-block":     # M != N
+        pts, lo, hi = _pixel_cloud(24, 7001), 1000, 3500
+    elif kind == "cloud-3d":      # D = 3, metres: non-integer, three-term norms
+        pts, eps = _metric_cloud(28, n=6000), 0.05
+    else:                         # "cloud-3d-parked": D = 3 with parked lanes, a row block
+        pts, lo, hi, eps = _metric_cloud(29, n=5000), 700, 4100, 0.05
+    valid = rng.random(len(pts)) < (0.7 if kind.endswith("parked") else 0.95)
+    pts = np.where(valid[:, None], pts, np.float32(dbscan._FAR)).astype(np.float32)
+    sl = slice(lo, hi)
+    return pts[sl], pts, eps, valid, valid[sl]
+
+
+@pytest.mark.parametrize("kind", ["floats", "parked", "at-eps", "duplicates", "ragged",
+                                  "row-block", "cloud-3d", "cloud-3d-parked"])
+def test_dbscan_eps_kernel_bit_equal_to_panels(cuda, kind):
+    """csrc/dbscan_eps.cu in both modes against the (block, N) panels on the
+    card: counts, the lowest core label with and without the propagation
+    round's epilogue; three launches."""
+    rows, pts, eps, valid, row_valid = _eps_case(kind)
+    rows, pts, valid, row_valid = (torch.as_tensor(a, device=cuda)
+                                   for a in (rows, pts, valid, row_valid))
+    rng = np.random.default_rng(25)
+    n, m = pts.shape[0], rows.shape[0]
+    labels = torch.as_tensor(rng.integers(0, n, n).astype(np.int32), device=cuda)
+    core = valid & torch.as_tensor(rng.random(n) < 0.6, device=cuda)
+    row_labels = torch.as_tensor(rng.integers(0, n, m).astype(np.int32), device=cuda)
+    row_core = torch.as_tensor(rng.random(m) < 0.6, device=cuda)
+    calls = [
+        (distance.eps_counts, distance.eps_counts_plain, (rows, pts, eps, valid, row_valid)),
+        (distance.eps_min_label, distance.eps_min_label_plain, (rows, pts, eps, labels, core)),
+        (distance.eps_min_label, distance.eps_min_label_plain,
+         (rows, pts, eps, labels, core, row_labels, row_core)),
+    ]
+    before = kernels.LAUNCHES["dbscan_eps"]
+    results = []
+    for fn, plain, args in calls:
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.int32 and got.shape == (m,)
+        assert torch.equal(got, want), (fn.__name__, int((got != want).sum()))
+        results.append(got)
+    assert kernels.LAUNCHES["dbscan_eps"] == before + 3
+    assert int(results[0].max()) > 1                      # the case has neighbours
+    if kind.endswith("parked"):
+        assert int((~valid).sum()) > 1000
+
+
+def test_dbscan_slice_on_card_bit_equal_to_cpu(cuda):
+    """App C on one textured 16384-event 1280x720 slice (the benchmark's
+    scene): dense on the card, every field the same bits as the CPU's."""
+    from evflow_tpu_torch.config import DBSCANConfig
+    st = synthetic.textured_field_stream(num_slices=2, events_per_slice=16384, seed=31)
+    sl = slice_by_count(st, 16384, drop_partial=True)
+    x, y, v = (torch.as_tensor(np.ascontiguousarray(a[1]))
+               for a in (sl.x, sl.y, sl.valid_mask()))
+    before = kernels.LAUNCHES["dbscan_eps"]
+    got = dbscan.dbscan_slice(x.to(cuda), y.to(cuda), v.to(cuda), DBSCANConfig())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dbscan_eps"] > before          # the slice went dense
+    ref = dbscan.dbscan_slice(x, y, v, DBSCANConfig())
+    interop.assert_trees_close(got, ref, rtol=0, atol=0)
+    assert int(got.num_clusters) > 10
+
+
+def test_dbscan_eps_launches_per_dense_call(cuda):
+    """One dense dbscan call launches the kernel rounds + 2 times: the core
+    counts, one per propagation round, the border attachment."""
+    from evflow_tpu_torch.config import DBSCANConfig
+    pts = torch.as_tensor(_pixel_cloud(26), device=cuda)
+    before = kernels.LAUNCHES["dbscan_eps"]
+    res = dbscan.dbscan(pts, cfg=DBSCANConfig(min_cluster_size=50))
+    assert kernels.LAUNCHES["dbscan_eps"] == before + int(res.iterations) + 2
+    assert int(res.iterations) > 1
+
+
+def test_dbscan_eps_three_dimensions_on_card(cuda):
+    """Dense DBSCAN at D = 3 (the metric cloud's two blobs) on the card:
+    rounds + 2 launches, every field the same bits as the CPU's panels,
+    both blobs found. A D other than 2 or 3 raises on the card."""
+    from evflow_tpu_torch.config import DBSCANConfig
+    pts = _metric_cloud(27, n=8000)
+    pts = pts[pts[:, 2] > 0.4]
+    cfg = DBSCANConfig(eps=0.05, core_min_pts=10, min_cluster_size=100)
+    before = kernels.LAUNCHES["dbscan_eps"]
+    got = dbscan.dbscan(torch.as_tensor(pts, device=cuda), cfg=cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dbscan_eps"] == before + int(got.iterations) + 2
+    ref = dbscan.dbscan(torch.as_tensor(pts), cfg=cfg)
+    interop.assert_trees_close(got, ref, rtol=0, atol=0)
+    assert int(got.num_clusters) == 2
+    wide = torch.zeros((64, 4), device=cuda)
+    with pytest.raises(ValueError, match="2-D or 3-D"):
+        distance.radius_neighbor_counts(wide, 1.0)
 
 
 @pytest.mark.parametrize("kind", ["pixels", "metric"])
@@ -604,7 +720,8 @@ def test_stack_path_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     got = scan(cuda, stack)
     assert kernels.LAUNCHES == {"efast_stencil": 0, "efast_ring": 6 * 8, "assign_manhattan": 6,
-                                "cluster_stats": 6, "aeclustering_exact": 0}, kernels.LAUNCHES
+                                "cluster_stats": 6, "aeclustering_exact": 0,
+                                "dbscan_eps": 0}, kernels.LAUNCHES
     kernels.reset_launches()
     serial = scan(cuda, cfg)
     assert kernels.LAUNCHES["efast_ring"] == 6 * 8, kernels.LAUNCHES

@@ -18,7 +18,11 @@ import jax.numpy as jnp
 
 from evflow_tpu.config import DBSCANConfig
 from evflow_tpu.models import dbscan as jdb, pointcloud as jpc
+from evflow_tpu.ops import distance as jdist
+from evflow_tpu_torch import kernels
 from evflow_tpu_torch.models import dbscan, optics, pointcloud
+from evflow_tpu_torch.ops import distance
+from evflow_tpu_torch.parallel import batch
 
 torch.set_num_threads(2)
 
@@ -164,6 +168,47 @@ def test_dbscan_grid_pixels_and_fallback(max_neighbors):
     dense = dbscan.dbscan(torch.as_tensor(pts), cfg=cfg)
     assert ({frozenset(s) for s in _as_sets(dense.labels).values()}
             == {frozenset(s) for s in _as_sets(got.labels).values()})
+
+
+def test_cpu_eps_tests_launch_nothing():
+    """CPU tensors take the panels: dense dbscan, the neighbor counts and
+    the one-rank dbscan_sharded launch no kernel (csrc/dbscan_eps.cu runs
+    only for CUDA tensors), and give JAX's labels."""
+    pts = _pixels()
+    cfg = DBSCANConfig(min_cluster_size=50)
+    before = dict(kernels.LAUNCHES)
+    got = dbscan.dbscan(torch.as_tensor(pts), cfg=cfg)
+    counts = distance.radius_neighbor_counts(torch.as_tensor(pts), cfg.eps)
+    sharded = batch.dbscan_sharded(pts, cfg=cfg, device="cpu")
+    assert kernels.LAUNCHES == before
+    _assert_same(got, jdb.dbscan(jnp.asarray(pts), cfg=cfg))
+    _assert_same(sharded, jdb.dbscan(jnp.asarray(pts), cfg=cfg))
+    np.testing.assert_array_equal(
+        counts.numpy(), np.asarray(jdist.radius_neighbor_counts(jnp.asarray(pts), cfg.eps)))
+
+
+def test_eps_min_label_round_and_rows():
+    """eps_min_label on a row block equals those rows of the whole call,
+    and with row labels and row core flags it is one propagation round:
+    where(row_core, min(row_labels, lowest core label within eps),
+    row_labels); eps_counts zeroes the rows that are not valid."""
+    pts = torch.as_tensor(_pixels(seed=8))
+    rng = np.random.default_rng(9)
+    n = pts.shape[0]
+    labels = torch.as_tensor(rng.integers(0, n, n).astype(np.int32))
+    core = torch.as_tensor(rng.random(n) < 0.5)
+    valid = torch.as_tensor(rng.random(n) < 0.9)
+    whole = distance.eps_min_label(pts, pts, 20.0, labels, core, block=333)
+    rows = slice(100, 700)
+    part = distance.eps_min_label(pts[rows], pts, 20.0, labels, core)
+    assert torch.equal(part, whole[rows])
+    assert int((whole < distance.NO_LABEL).sum()) > n // 2
+    rnd = distance.eps_min_label(pts, pts, 20.0, labels, core, labels, core)
+    assert torch.equal(rnd, torch.where(core, torch.minimum(labels, whole), labels))
+    counts = distance.eps_counts(pts, pts, 20.0, valid, torch.ones_like(valid))
+    assert torch.equal(distance.eps_counts(pts, pts, 20.0, valid, valid),
+                       torch.where(valid, counts, 0))
+    assert bool((counts[~valid] > 0).any())
 
 
 # ---------------------------------------------------------------- point cloud

@@ -181,6 +181,29 @@ def test_radius_counts_and_kth_match_jax(kind):
               jdist.kth_neighbor_dist(jnp.asarray(pts), 4, eps_k, block=128), **tol)
 
 
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+def test_pairwise_sqdist_rounds_in_a_fixed_order(d):
+    """Every rounding of pairwise_sqdist in a fixed order, the one
+    csrc/dbscan_eps.cu repeats: squared norms and the cross term summed
+    term by term from the first coordinate, then (a2 + b2) - 2 cross,
+    clamped at 0; the same bits as numpy's float32 steps."""
+    a, b = _points("float", 200, d, seed=7), _points("float", 50, d, seed=8)
+
+    def norm(p):
+        s = p[:, 0] * p[:, 0]
+        for k in range(1, d):
+            s = s + p[:, k] * p[:, k]
+        return s
+
+    cross = a[:, None, 0] * b[None, :, 0]
+    for k in range(1, d):
+        cross = cross + a[:, None, k] * b[None, :, k]
+    want = np.maximum((norm(a)[:, None] + norm(b)[None, :]) - np.float32(2) * cross,
+                      np.float32(0))
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(distance.pairwise_sqdist(*_t(a, b)).numpy(), want)
+
+
 def test_pairwise_sqdist_large_coordinate_precision():
     """Coordinates around 1e3 with a 5.64 gate under float32 matmul
     precision "high" (which allows TF32 in matmuls): the neighbor test
