@@ -39,16 +39,17 @@ Phases, one line each:
      kernel (csrc/launch_floor.cu) at the kernel's grid. The stencil is
      also timed, and bounded, on the all-ones activity map (every tile);
   8. full_scan at q=8 with the snapshot-stack corner path (micro_stack)
-     over the same slices: launches, every state and output leaf bit-equal
-     to phase 5's serial q=8 run, slices 1-4 against a plain CPU step, its
-     corner agreement equal to the JAX package's q=8 value; ms/slice of
-     serial and stack in the order serial, stack, stack, serial;
+     over the same slices: launches (one `efast_ring` a slice), every
+     state and output leaf bit-equal to phase 5's serial q=8 run, slices
+     1-4 against a plain CPU step, its corner agreement equal to the JAX
+     package's q=8 value; ms/slice of serial and stack in the order
+     serial, stack, stack, serial;
   9. k-means (`kmeans_phase`), 10. DBSCAN dense and grid (`dbscan_phase`),
      11. app C's point-cloud chain (`pointcloud_phase`): each against its
      CPU run, with ms per call; 10b. DBSCAN's eps kernel
      (`dbscan_eps_phase`, csrc/dbscan_eps.cu): its launches in
      `pipeline.dbscan_scan` on the DEFAULT slices and on 4 slices of the
-     benchmark's textured scene, rounds + 2 per dense slice; both modes
+     benchmark's textured scene, rounds + 2 per slice; both modes
      (the core counts; a propagation round's lowest core label) bit-equal
      to one pass of the plain panels on the card at D = 3 (app C's cloud)
      and on slice 3's 16384 events, with its eager, device, launch-floor
@@ -136,7 +137,6 @@ import json
 import subprocess
 import sys
 import time
-from collections import Counter
 
 import numpy as np
 import torch
@@ -480,8 +480,8 @@ DBSCAN_TEXTURED_SLICES = 4    # slices of the benchmark's textured scene in phas
 
 @contextlib.contextmanager
 def recorded_dense(rounds: list):
-    """Within it, each dense dbscan call (the fallback of dbscan_slice)
-    appends its propagation rounds to `rounds`."""
+    """Within it, each dense dbscan call (one per dbscan_slice) appends its
+    propagation rounds to `rounds`."""
     from evflow_tpu_torch.models import dbscan
     saved = dbscan.dbscan
 
@@ -499,10 +499,9 @@ def recorded_dense(rounds: list):
 
 def counted_dbscan_scan(dev, xs, ys, ts, vs, cfg) -> tuple:
     """pipeline.dbscan_scan, the benchmark cell's path, on (S, N) slices on
-    the card with the launch counts zeroed: (dbscan_eps launches, the dense
-    slices' rounds). Each dense slice launches the kernel rounds + 2 times
-    (the core counts, one per round, the border attachment), a grid slice
-    none."""
+    the card with the launch counts zeroed: (dbscan_eps launches, the
+    slices' rounds). Every slice is dense and launches the kernel rounds + 2
+    times (the core counts, one per round, the border attachment)."""
     from evflow_tpu_torch import kernels
     from evflow_tpu_torch.models import pipeline
     rounds = []
@@ -513,14 +512,14 @@ def counted_dbscan_scan(dev, xs, ys, ts, vs, cfg) -> tuple:
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES["dbscan_eps"]
     assert launches == sum(r + 2 for r in rounds), (launches, rounds)
-    assert not Counter(rounds) - Counter(out.iterations.tolist()), (rounds, out.iterations)
+    assert rounds == out.iterations.tolist(), (rounds, out.iterations)
     return launches, rounds
 
 
 def dbscan_eps_phase(dev, card, xs, ys, ts, vs, cfg) -> dict:
     """Phase 10b: csrc/dbscan_eps.cu. Its launches on the main path:
     pipeline.dbscan_scan on the DEFAULT slices and on slices of the
-    benchmark's textured scene, rounds + 2 per dense slice. Then on slice
+    benchmark's textured scene, rounds + 2 per slice. Then on slice
     3's events, parked and flagged as dense dbscan hands them over, count
     mode (the core counts) and min-label mode (a propagation round from the
     first labels), each bit-equal to the plain (2048, N) panels on the
@@ -542,7 +541,6 @@ def dbscan_eps_phase(dev, card, xs, ys, ts, vs, cfg) -> dict:
                                     tex.valid_mask()))
     scans = {"DEFAULT": counted_dbscan_scan(dev, xs, ys, ts, vs, cfg),
              "textured": counted_dbscan_scan(dev, txs, tys, tts, tvs, cfg)}
-    assert scans["textured"][1], "no textured slice took the dense path"
     launches = sum(k for k, _ in scans.values())
 
     def cases(pts, valid):
@@ -590,8 +588,8 @@ def dbscan_eps_phase(dev, card, xs, ys, ts, vs, cfg) -> dict:
                          bound_by=b["bound_by"], library_ms=None, launch_floor_ms=floor, **r)
         else:
             entry.update({f"min_label_{k}": v for k, v in r.items()})
-    print(f"dbscan_eps on {card}: launches in dbscan_scan, rounds + 2 per dense slice: " + "; ".join(
-        f"{name} {xs_.shape[0]} slices, {len(r)} dense (rounds {r}), {k} launches"
+    print(f"dbscan_eps on {card}: launches in dbscan_scan, rounds + 2 per slice: " + "; ".join(
+        f"{name} {xs_.shape[0]} slices (rounds {r}), {k} launches"
         for (name, (k, r)), xs_ in zip(scans.items(), (xs, txs)))
         + f"; both modes bit-equal to the panels at D = 3 on app C's {cloud.shape[0]} blob "
         f"points and at D = 2 on slice 3's {n} events ({int(valid.sum())} valid, "
@@ -1864,6 +1862,7 @@ def main() -> int:
                                                                       micro_stack=True))
     launches_st, corners_st, _, reported_st, scan_st = counted_full_scan(
         cfg_stack, ("efast_ring", "assign_manhattan", "cluster_stats"))
+    assert launches_st["efast_ring"] == N_SLICES, launches_st
     interop.assert_trees_close(scan_st, scan_q8, **EXACT_TOL, what="stack vs serial q=8")
     teacher_forced(cfg_stack, range(1, 5))
     agreement_st = fidelity.corner_agreement(8, device=dev, stack=True)

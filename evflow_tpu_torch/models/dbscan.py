@@ -24,13 +24,10 @@ propagates over it; it takes the dense path where JAX does: no table, or a
 row over the table's width.
 
 `dbscan_slice` is app C on one slice of an event stream already on the
-device: the (x, y) pixels of its valid events, duplicates kept, by
-dbscan_grid's rule, decided on the device (the grid's extent and largest
-cell, then the table's widest row, read back as a few integers; the points
-stay where they are), with each cluster's size and centroid. Its spans
-(`utils/profiling.span`): `dbscan` per call, `dbscan.table` the grid
-attempt with its decision, `dbscan.dense` the dense fallback, and
-`dbscan.round` each propagation round with its sync.
+device: dense `dbscan` of the (x, y) pixels of its valid events,
+duplicates kept, with each cluster's size and centroid. Its spans
+(`utils/profiling.span`): `dbscan` per call, `dbscan.dense` the dense
+pass, and `dbscan.round` each propagation round with its sync.
 """
 
 from __future__ import annotations
@@ -132,30 +129,10 @@ def dbscan_grid(points: np.ndarray, cfg: DBSCANConfig = DBSCANConfig(),
     grid does not apply or a neighborhood overflows the table: an
     overflowed row could drop an eps-edge and split a cluster."""
     pts = torch.as_tensor(np.asarray(points, dtype=np.float32), device=device)
-    return _grid_or_dense(pts, None, cfg, max_neighbors, max_iters)
-
-
-def _grid_or_dense(pts: torch.Tensor, valid, cfg: DBSCANConfig, max_neighbors: int,
-                   max_iters: int) -> DBSCANResult:
-    """dbscan_grid's rule on (N, D) device points, over the valid lanes
-    (invalid lanes: -1, not core): the grid's table where it applies and no
-    row overflows it, else dense `dbscan`."""
-    n = pts.shape[0]
-    with span("dbscan.table"):
-        table = optics.grid_neighbors(pts, cfg.eps, cfg.core_min_pts, valid,
-                                      max_neighbors=max_neighbors)
-        if table is not None and bool((table.count > table.idx.shape[1]).any()):
-            table = None
-    if table is None:
-        with span("dbscan.dense"):
-            return dbscan(pts, valid, cfg=cfg)
-    res = _dbscan_from_table(table.idx, table.count, cfg, max_iters)
-    if table.idx.shape[0] == n:
-        return res
-    # the table holds the valid lanes, in order
-    def spread(v, fill):
-        return torch.full((n,), fill, dtype=v.dtype, device=v.device).masked_scatter(valid, v)
-    return res._replace(labels=spread(res.labels, -1), core_mask=spread(res.core_mask, False))
+    table = optics.grid_neighbors(pts, cfg.eps, cfg.core_min_pts, max_neighbors=max_neighbors)
+    if table is None or bool((table.count > table.idx.shape[1]).any()):
+        return dbscan(pts, cfg=cfg)
+    return _dbscan_from_table(table.idx, table.count, cfg, max_iters)
 
 
 class DBSCANSlice(NamedTuple):
@@ -169,16 +146,16 @@ class DBSCANSlice(NamedTuple):
 
 def dbscan_slice(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
                  cfg: DBSCANConfig = DBSCANConfig()) -> DBSCANSlice:
-    """App C on one slice: DBSCAN of the (x, y) pixels of the valid events,
-    by dbscan_grid's rule (labels bit-equal to dbscan_grid at its defaults
-    on those pixels), on their device. Clusters are numbered by size and
-    each holds at least min_cluster_size events, so K = N //
-    min_cluster_size rows hold them all; sizes and float32 centroids by
-    `ops.segment`."""
+    """App C on one slice: dense DBSCAN of the (x, y) pixels of the valid
+    events (labels bit-equal to dbscan_grid at its defaults on those
+    pixels), on their device. Clusters are numbered by size and each holds
+    at least min_cluster_size events, so K = N // min_cluster_size rows
+    hold them all; sizes and float32 centroids by `ops.segment`."""
     n = x.shape[0]
     with span("dbscan"):
         pts = torch.stack([x, y], 1).to(torch.float32)
-        res = _grid_or_dense(pts, valid, cfg, _MAX_NEIGHBORS, _MAX_ITERS)
+        with span("dbscan.dense"):
+            res = dbscan(pts, valid, cfg)
         k = n // max(cfg.min_cluster_size, 1)
         centroid, size = segment_mean_points(pts, res.labels, k, res.labels >= 0)
     return DBSCANSlice(labels=res.labels, core=res.core_mask, num_clusters=res.num_clusters,

@@ -281,40 +281,30 @@ def _rank_in_cell(cell_id: torch.Tensor):
     return torch.empty_like(pos).scatter_(0, sl, pos - run_start), pos
 
 
-def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int,
-                   valid: Optional[torch.Tensor] = None, max_neighbors: int = 256,
+def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int, max_neighbors: int = 256,
                    block: int = 4096, max_bucket: int = 1024, max_cells: int = 1 << 22,
                    allow_projected: bool = False, full_window: bool = False,
                    full_window_entry_cap: int = 192 << 20,
                    proj_dims: int = 3) -> Optional[NeighborTable]:
-    """compute_neighbors_grid on (N, d) device points: the table of the
-    valid lanes, compacted in order (all lanes without `valid`), or None
-    where the grid does not apply. The decision is made on the device: the
-    cells' extent, their largest occupancy and the valid count are read
-    back as g + 2 integers in one copy, and the points stay where they are.
-    A cell's coordinate is floor((p - min) / eps) in fp32."""
+    """compute_neighbors_grid on (N, d) device points, or None where the
+    grid does not apply. The decision is made on the device: the cells'
+    extent and their largest occupancy are read back as g + 1 integers in
+    one copy, and the points stay where they are. A cell's coordinate is
+    floor((p - min) / eps) in fp32."""
     n, d = pts.shape
     if n == 0 or (d > 4 and not allow_projected):
         return None
     g = min(d, 4) if d <= 4 else min(proj_dims, 4)
-    dev = pts.device
-    ok = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid
-    eps_t = torch.full((), eps, dtype=torch.float32, device=dev)
-    mins = torch.where(ok[:, None], pts, torch.inf).amin(0)
-    # an invalid lane sits in cell 0 with id -1: it sorts before every cell
-    # and leaves the ranks of the valid lanes as they are once compacted
-    cell = torch.where(ok[:, None], torch.floor((pts[:, :g] - mins[None, :g]) / eps_t),
-                       0.0).to(torch.int64)
+    eps_t = torch.full((), eps, dtype=torch.float32, device=pts.device)
+    mins = pts.amin(0)
+    cell = torch.floor((pts[:, :g] - mins[None, :g]) / eps_t).to(torch.int64)
     dims_t = cell.amax(0) + 1
     rev = torch.cumprod(torch.flip(dims_t, (0,)), 0)
     strides = torch.cat([torch.flip(rev, (0,))[1:], torch.ones_like(rev[:1])])
-    cell_id = torch.where(ok, (cell * strides).sum(1), -1)
+    cell_id = (cell * strides).sum(1)
     rank, _ = _rank_in_cell(cell_id)
-    occupancy = torch.where(ok, rank, -1).amax() + 1
-    head = torch.cat([dims_t, occupancy[None], ok.sum()[None]]).tolist()
-    dims, count = tuple(head[:g]), head[g + 1]
-    if count == 0:
-        return None
+    head = torch.cat([dims_t, rank.amax()[None] + 1]).tolist()
+    dims = tuple(head[:g])
     ncells = math.prod(dims)
     if ncells > max_cells:
         return None
@@ -323,18 +313,15 @@ def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int,
         return None
     if (ncells + 1) * (d + 1) * bucket >= 2**31 - 1:
         return None
-    if ncells * bucket > max(32 * count, 1 << 20):
+    if ncells * bucket > max(32 * n, 1 << 20):
         return None
     m = (3 ** g) * bucket
-    if full_window and count * m <= full_window_entry_cap:
+    if full_window and n * m <= full_window_entry_cap:
         select_k = 0
     else:
         if m > max_neighbors and min_pts > max_neighbors:
             return None
-        select_k = 0 if m <= max_neighbors else min(max(max_neighbors, min_pts), count)
-    if count < n:
-        keep = ok.nonzero()[:, 0]
-        pts, cell, cell_id, rank = pts[keep], cell[keep], cell_id[keep], rank[keep]
+        select_k = 0 if m <= max_neighbors else min(max(max_neighbors, min_pts), n)
     return NeighborTable(*_grid_table(pts, cell, cell_id, rank, dims_t, strides, eps_t,
                                       dims, bucket, min_pts, block, select_k))
 

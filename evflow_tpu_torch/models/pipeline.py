@@ -402,9 +402,10 @@ def stack_detect(sae: torch.Tensor, x, y, t, valid, cfg: EngineConfig):
     dropped), then a running maximum over the sub axis that starts from
     the input surface: q in-place maxima, not torch.cummax, whose
     (q, H, W) int64 indices would be 59 MB at DEFAULT. Candidates per
-    sub-slice, then each sub-slice's detection against its own plane.
-    Bit-equal to the serial micro path while the surface holds no
-    negative time (the planes' 0 lifts those, as in JAX)."""
+    sub-slice, then one detection of every sub-slice against its own plane
+    (`efast.detect_corners_stacked`). Bit-equal to the serial micro path
+    while the surface holds no negative time (the planes' 0 lifts those, as
+    in JAX)."""
     q = cfg.efast.micro_slices
     nsub = x.shape[0] // q
     m_sub = max(cfg.efast.max_candidates // q, 64)
@@ -421,11 +422,10 @@ def stack_detect(sae: torch.Tensor, x, y, t, valid, cfg: EngineConfig):
         for k in range(1, q):
             torch.maximum(planes[k], planes[k - 1], out=planes[k])
     cands = [_representative_candidates(xr[k], yr[k], vr[k], m_sub, cfg) for k in range(q)]
-    masks = [efast.detect_corners(planes[k], cx, cy, cv, cfg.efast, cfg.sensor)
-             for k, (cx, cy, cv, _) in enumerate(cands)]
-    cxs, cys, _, drops = zip(*cands)
-    return (planes[q - 1].clone(), torch.cat(cxs), torch.cat(cys), torch.cat(masks),
-            torch.stack(drops).sum(dtype=torch.int32))
+    cxs, cys, cvs, drops = (torch.stack(a) for a in zip(*cands))
+    masks = efast.detect_corners_stacked(planes, cxs, cys, cvs, cfg.efast, cfg.sensor)
+    return (planes[q - 1].clone(), cxs.reshape(-1), cys.reshape(-1), masks.reshape(-1),
+            drops.sum(dtype=torch.int32))
 
 
 def corner_track_step_event_exact(state: CornerTrackState, x: torch.Tensor,

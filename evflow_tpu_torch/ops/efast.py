@@ -269,6 +269,7 @@ def detect_corners(sae: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return _ring_test(sae[None], x[None], y[None], valid[None], cfg, sensor)[0]
 
 
+@spanned("efast")
 def detect_corners_stacked(saes: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                            valid: torch.Tensor, cfg: EFastConfig = EFastConfig(),
                            sensor: SensorConfig = SensorConfig()) -> torch.Tensor:

@@ -3,14 +3,13 @@
 `span(name)`, or the decorator `spanned(name)`, marks a stretch of the
 program's host work: the whole of a slice, a module's call (dedup,
 fastcluster, sae, candidates, efast, nms, tracker, exact_engine, dbscan),
-a path inside one (`dbscan.table`, the grid attempt with its decision;
-`dbscan.dense`, the dense fallback), or one round of a host-checked
-fixpoint (`nms.round`, `tracker.associate.round`,
-`tracker.group_seeds.round`, `dbscan.round`), so the count of round spans
-is the round count. While a `torch.profiler` session records, a span is a
-`record_function` range and lands in the same trace as the CUDA kernels,
-on the same clock; otherwise it is one shared no-op context. It adds no
-device sync and reads no tensor.
+a path inside one (`dbscan.dense`, DBSCAN's dense pass in a slice), or
+one round of a host-checked fixpoint (`nms.round`,
+`tracker.associate.round`, `tracker.group_seeds.round`, `dbscan.round`),
+so the count of round spans is the round count. While a `torch.profiler`
+session records, a span is a `record_function` range and lands in the
+same trace as the CUDA kernels, on the same clock; otherwise it is one
+shared no-op context. It adds no device sync and reads no tensor.
 
 `trace(log_dir)` records CPU (and, with a card, CUDA) activity over a block
 and writes it as a Chrome trace (open it in chrome://tracing or Perfetto).

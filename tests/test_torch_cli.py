@@ -133,7 +133,7 @@ def test_cli_corner_track(small_stream, capsys):
 
 
 TEMPORAL_1X1 = ["temporal", "--windows", "1", "--tiles", "1", "--warmup", "2"]
-# eps 3 px: the one blob's neighbourhoods fit the grid's table
+# eps 3 px: small neighbourhoods, a few propagation rounds per slice
 DBSCAN_SMALL = ["--eps", "3", "--min-pts", "5", "--min-cluster-size", "50"]
 TRACED = {
     # argv, slices run per slice printed beyond it (temporal's warm-up),
@@ -144,7 +144,7 @@ TRACED = {
                                    "nms.round", "tracker"}),
     "temporal-exact": (TEMPORAL_1X1 + ["--exact"], 2, {"dedup", "exact_engine"}),
     "dbscan-per-slice": (["dbscan", "--per-slice"] + DBSCAN_SMALL, 0,
-                         {"dbscan", "dbscan.table", "dbscan.round"}),
+                         {"dbscan", "dbscan.dense", "dbscan.round"}),
 }
 
 

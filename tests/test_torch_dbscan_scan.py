@@ -1,7 +1,7 @@
 """App C per slice (`pipeline.dbscan_scan`, `dbscan.dbscan_slice`) on the
 CPU: 2048-event slices of seeded textured and blobs streams at 640x400
-(`io/synthetic.py`), with a short last slice, so that both the grid's
-table and the dense fallback are taken.
+(`io/synthetic.py`), with a short last slice, so that some slices fit
+`dbscan_grid`'s table and some overflow it.
 
 - Each slice equals `dbscan_grid` and dense `dbscan` on its valid pixels,
   field by field, and its sizes and centroids are its labels' own.
@@ -10,9 +10,9 @@ table and the dense fallback are taken.
   core mask and counts, and centroids within 1e-4 px.
 - The reference is right on hand-built cases: a border point between two
   clusters, both size bounds, equal sizes.
-- The spans: one `slice`, `dbscan` and `dbscan.table` per slice, one
-  `dbscan.dense` per dense slice, one `dbscan.round` per propagation round
-  (the sum of `iterations`), as tests/test_torch_spans.py reads them."""
+- The spans: one `slice`, `dbscan` and `dbscan.dense` per slice, no
+  `dbscan.table`, one `dbscan.round` per propagation round (the sum of
+  `iterations`), as tests/test_torch_spans.py reads them."""
 
 import dataclasses
 import json
@@ -191,10 +191,8 @@ def test_spans_count_slices_rounds_and_dense(tmp_path, scene):
     out = got["out"]
     count = {name: sum(s[0] == name for s in spans)
              for name in ("slice", "dbscan", "dbscan.table", "dbscan.dense", "dbscan.round")}
-    dense = sum(not _takes_grid(torch.stack([xs[s], ys[s]], 1)[vs[s]].float().numpy())
-                for s in range(xs.shape[0]))
-    assert count["slice"] == count["dbscan"] == count["dbscan.table"] == xs.shape[0]
-    assert count["dbscan.dense"] == dense
+    assert count["slice"] == count["dbscan"] == count["dbscan.dense"] == xs.shape[0]
+    assert count["dbscan.table"] == 0
     assert count["dbscan.round"] == int(out.iterations.sum())
     slices = [(a, b) for n, a, b in spans if n == "slice"]
     assert all(any(a <= s and e <= b for a, b in slices) for n, s, e in spans if n != "slice")
