@@ -44,6 +44,13 @@ Phases, one line each:
      1-4 against a plain CPU step, its corner agreement equal to the JAX
      package's q=8 value; ms/slice of serial and stack in the order
      serial, stack, stack, serial;
+ 8b. the representative candidates' kernel (`rep_candidates_phase`,
+     csrc/rep_candidates.cu) on slice 3, in the q=8 path's 8 rows of 2,048
+     lanes into 1,024 slots and the q=1 path's one row of 16,384 into
+     8,192, bit-equal to its plain version on the card, with its eager,
+     device, launch-floor and plain times beside its bound, and a JSON entry
+     in the per-kernel line (`launches`: phase 5's, one a slice; phases 3 and
+     8 also launch it once a slice);
   9. k-means (`kmeans_phase`), 10. DBSCAN dense and grid (`dbscan_phase`),
      11. app C's point-cloud chain (`pointcloud_phase`): each against its
      CPU run, with ms per call; 10b. DBSCAN's eps kernel
@@ -119,10 +126,11 @@ type, both counted from this run's shapes and data (`kernel_bounds`). Its
 grid can go, however small its bound. The exact engine is serial, so it
 also gets `latency_floor_ms`: its events times the shortest dependent
 chain per event. Its `library_ms` is null: no
-single PyTorch call computes any of the kernels' functions. The last entry
-is dbscan_eps's, from phase 10b (its `min_label_*` keys: the second mode). cluster_stats'
-entry also has `max_abs_err_k_after`, `k_after_ms`, `k_after_plain_ms`
-and `k_after_device_ms`: the same against its plain version with a
+single PyTorch call computes any of the kernels' functions. The last two
+entries are rep_candidates', from phase 8b, and dbscan_eps's, from phase
+10b (its `min_label_*` keys: the second mode). cluster_stats' entry also
+has `max_abs_err_k_after`, `k_after_ms`, `k_after_plain_ms` and
+`k_after_device_ms`: the same against its plain version with a
 nonzero k_after (the later tiles' counts of the tiled update). The stencil's
 entry also has `all_tiles_ms`, `all_tiles_device_ms`, `all_tiles_bound_ms`
 and `all_tiles_launch_floor_ms`, the same on the all-ones map.
@@ -597,6 +605,57 @@ def dbscan_eps_phase(dev, card, xs, ys, ts, vs, cfg) -> dict:
         + f"; launch floor {floor:.5f} ms at grid {grid}; bound {b['bound_ms']:.5f} ms by "
         f"{b['bound_by']} ({b['bound_basis']})", flush=True)
     return entry
+
+
+REP_THREADS = 512   # csrc/rep_candidates.cu: one CTA of 512 threads per row
+
+
+def rep_candidates_phase(dev, card, x, y, valid, cfg, path_launches) -> dict:
+    """Phase 8b: csrc/rep_candidates.cu on slice 3's events, as the q=8
+    path hands them over (8 rows of 2,048 lanes into 1,024 slots) and as
+    the q=1 path does (one row of 16,384 into 8,192): every output
+    bit-equal to the plain version (`_representative_candidates` row by
+    row) on the card. Times of the q=8 form: eager (CUDA events around
+    back-to-back calls), device (CUDA graph replay), the launch floor at its
+    grid and the plain version's eager time; the bound is its bytes, 9 per
+    lane in and 9 per slot out. `path_launches` is its count in phase 5's
+    q=8 run. Returns the kernel's entry for the per-kernel JSON line."""
+    from evflow_tpu_torch import kernels
+    from evflow_tpu_torch.models import pipeline
+    q = 8
+    n = x.shape[0]
+    nsub, m_sub = n // q, max(cfg.efast.max_candidates // q, 64)
+    forms = {"q=8": ((x.view(q, nsub), y.view(q, nsub), valid.view(q, nsub)), m_sub),
+             "q=1": ((x[None], y[None], valid[None]), cfg.efast.max_candidates)}
+    parts = []
+    for label, ((xr, yr, vr), m) in forms.items():
+        got = pipeline.representative_candidates(xr, yr, vr, m, cfg)
+        want = pipeline.representative_candidates_plain(xr, yr, vr, m, cfg)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("cx", "cy", "cvalid", "n_dropped"), got, want):
+            assert torch.equal(g, w), f"rep_candidates {label} {name}: {int((g != w).sum())} differ"
+        parts.append(f"{label} bit-equal ({xr.shape[0]} x {xr.shape[1]} lanes into {m}: "
+                     f"{int(want[2].sum())} kept, {int(want[3].sum())} dropped)")
+    (xr, yr, vr), m = forms["q=8"]
+    r = dict(ms=cuda_ms(lambda: pipeline.representative_candidates(xr, yr, vr, m, cfg)),
+             device_ms=device_ms(lambda: pipeline.representative_candidates(xr, yr, vr, m, cfg)),
+             plain_ms=cuda_ms(lambda: pipeline.representative_candidates_plain(xr, yr, vr, m, cfg)))
+    grid = (q, REP_THREADS, 1)
+    floor = device_ms(lambda: kernels.launch_floor(*grid))
+    b = bound(q * (9 * nsub + 9 * m + 4), 0, 0,
+              f"{q} rows: x, y, valid in for {nsub} lanes, cx, cy, cvalid out for {m} slots, "
+              "n_dropped; the table's probes depend on the data")
+    print(f"rep_candidates on {card}: {'; '.join(parts)}; q=8 form {r['ms']:.4f} ms eager, "
+          f"{r['device_ms']:.5f} device ({100 * b['bound_ms'] / r['device_ms']:.2f} % of the "
+          f"bound), plain {r['plain_ms']:.4f} ms; launch floor {floor:.5f} ms at grid {grid}; "
+          f"bound {b['bound_ms']:.6f} ms by {b['bound_by']} ({b['bound_basis']}); "
+          f"{path_launches} launches in phase 5's {N_SLICES} q=8 slices", flush=True)
+    return dict(name="rep_candidates", route="cuda",
+                source="evflow_tpu_torch/csrc/rep_candidates.cu",
+                replaces="none (evflow_tpu/models/pipeline.py:_representative_candidates "
+                         "is plain XLA)",
+                max_abs_err=0.0, launches=path_launches, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=None, launch_floor_ms=floor, **r)
 
 
 # app C's scene: 2^17 points, a plane z = 0.3 (3/4 of them, 1 x 1 m, noise
@@ -1561,8 +1620,8 @@ def main() -> int:
     s = 3
     x, y, tt, v = xs[s], ys[s], ts[s], vs[s]
     new_sae = sae_ops.update_sae(co.sae, x, y, tt, v)
-    cx, cy, cvalid, _ = pipeline._representative_candidates(
-        x, y, v, cfg.efast.max_candidates, cfg)
+    cx, cy, cvalid, _ = (a[0] for a in pipeline.representative_candidates(
+        x[None], y[None], v[None], cfg.efast.max_candidates, cfg))
     band = efast._pick_band(h)
     act = efast.tile_activity(cy, cvalid, h, w, band, cx)
     ones = torch.ones_like(act)
@@ -1588,8 +1647,8 @@ def main() -> int:
     # surface and its max(cap // 8, 64) representative candidates
     nsub, m_sub = n // 8, max(cfg.efast.max_candidates // 8, 64)
     sub_sae = sae_ops.update_sae(co.sae, x[:nsub], y[:nsub], tt[:nsub], v[:nsub])
-    rcx, rcy, rcv, _ = pipeline._representative_candidates(
-        x[:nsub], y[:nsub], v[:nsub], m_sub, cfg)
+    rcx, rcy, rcv, _ = (a[0] for a in pipeline.representative_candidates(
+        x[None, :nsub], y[None, :nsub], v[None, :nsub], m_sub, cfg))
     ring_args = (sub_sae[None], rcx[None], rcy[None], rcv[None], cfg.efast, cfg.sensor)
     got = efast._ring_test(*ring_args)
     want = efast._ring_test_plain(*ring_args)
@@ -1737,7 +1796,8 @@ def main() -> int:
 
     # ---- 3. the main path, counted
     launches, corners, filtered, n_reported, _ = counted_full_scan(
-        cfg, ("efast_stencil", "assign_manhattan", "cluster_stats"))
+        cfg, ("efast_stencil", "assign_manhattan", "cluster_stats", "rep_candidates"))
+    assert launches["rep_candidates"] == N_SLICES, launches
     teacher_forced(cfg, range(1, 5))
     print(f"main path: launches {launches} over {N_SLICES} slices; corners/slice "
           f"{corners.tolist()}; filtered {filtered.tolist()}; "
@@ -1772,8 +1832,9 @@ def main() -> int:
 
     # ---- 5. full_scan at q=8, counted
     launches_q8, corners_q8, filtered_q8, reported_q8, scan_q8 = counted_full_scan(
-        cfg_q8, ("efast_ring", "assign_manhattan", "cluster_stats"))
+        cfg_q8, ("efast_ring", "assign_manhattan", "cluster_stats", "rep_candidates"))
     assert launches_q8["efast_ring"] == 8 * N_SLICES, launches_q8
+    assert launches_q8["rep_candidates"] == N_SLICES, launches_q8
     teacher_forced(cfg_q8, range(1, 5))
     print(f"q=8 path: launches {launches_q8} over {N_SLICES} slices; corners/slice "
           f"{corners_q8.tolist()}; filtered {filtered_q8.tolist()}; clusters "
@@ -1801,16 +1862,17 @@ def main() -> int:
     @contextlib.contextmanager
     def plain_versions():
         saved = (efast.corner_mask_stencil, efast._ring_test, ck.assign_manhattan,
-                 ck.cluster_stats)
+                 ck.cluster_stats, pipeline.representative_candidates)
         efast.corner_mask_stencil = efast.corner_mask_stencil_plain
         efast._ring_test = efast._ring_test_plain
         ck.assign_manhattan = ck.assign_manhattan_plain
         ck.cluster_stats = ck.cluster_stats_plain
+        pipeline.representative_candidates = pipeline.representative_candidates_plain
         try:
             yield
         finally:
             (efast.corner_mask_stencil, efast._ring_test, ck.assign_manhattan,
-             ck.cluster_stats) = saved
+             ck.cluster_stats, pipeline.representative_candidates) = saved
 
     scan_ms = {}
     for label, c in (("q=1", cfg), ("q=8", cfg_q8)):
@@ -1861,8 +1923,8 @@ def main() -> int:
     cfg_stack = dataclasses.replace(cfg_q8, efast=dataclasses.replace(cfg_q8.efast,
                                                                       micro_stack=True))
     launches_st, corners_st, _, reported_st, scan_st = counted_full_scan(
-        cfg_stack, ("efast_ring", "assign_manhattan", "cluster_stats"))
-    assert launches_st["efast_ring"] == N_SLICES, launches_st
+        cfg_stack, ("efast_ring", "assign_manhattan", "cluster_stats", "rep_candidates"))
+    assert launches_st["efast_ring"] == launches_st["rep_candidates"] == N_SLICES, launches_st
     interop.assert_trees_close(scan_st, scan_q8, **EXACT_TOL, what="stack vs serial q=8")
     teacher_forced(cfg_stack, range(1, 5))
     agreement_st = fidelity.corner_agreement(8, device=dev, stack=True)
@@ -1878,6 +1940,10 @@ def main() -> int:
           f"plain CPU step; corner agreement {agreement_st!r} (JAX package "
           f"{fidelity.JAX_AGREEMENT[8]!r}); ms/slice in the order serial, stack, stack, "
           f"serial: serial {stack_ms['serial']}, stack {stack_ms['stack']}", flush=True)
+
+    # ---- 8b. the representative candidates' kernel on slice 3
+    rep_candidates_entry = rep_candidates_phase(
+        dev, card, xs[3], ys[3], vs[3], cfg, path_launches=launches_q8["rep_candidates"])
 
     # ---- 9-12. k-means, DBSCAN, the point-cloud chain, OPTICS
     print(kmeans_phase(dev, card, xs[3], ys[3], vs[3]), flush=True)
@@ -1918,7 +1984,7 @@ def main() -> int:
              "all_tiles_launch_floor_ms": bounds[name]["launch_floor_ms"]}
             if name == "efast_stencil" else {}),
          **{k: v for k, v in r.items() if k.startswith(("k_after_", "max_abs_err_k"))}}
-        for name, r in results.items()] + [dbscan_eps_entry]}))
+        for name, r in results.items()] + [rep_candidates_entry, dbscan_eps_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -65,8 +65,8 @@ def corner_agreement(q: int, device="cuda", stack: bool = False) -> float:
             for k in range(q):
                 sl = slice(k * nsub, (k + 1) * nsub)
                 sae_q = sae_ops.update_sae(sae_q, xv[sl], yv[sl], tv[sl], ones[sl])
-                scx, scy, scv, _ = pipeline._representative_candidates(
-                    xv[sl], yv[sl], ones[sl], 2048 // q, cfgq)
+                scx, scy, scv, _ = (a[0] for a in pipeline.representative_candidates(
+                    xv[None, sl], yv[None, sl], ones[None, sl], 2048 // q, cfgq))
                 found.append((scx, scy, efast.detect_corners(sae_q, scx, scy, scv,
                                                              cfgq.efast, cfgq.sensor)))
         pix = set()

@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("efast_stencil.cu", "efast_ring.cu", "assign_manhattan.cu", "cluster_stats.cu",
-           "aeclustering_exact.cu", "dbscan_eps.cu", "launch_floor.cu")
+           "aeclustering_exact.cu", "dbscan_eps.cu", "rep_candidates.cu", "launch_floor.cu")
 HEADERS = ("efast_streak.cuh",)   # included by sources; part of the library's hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "evflow_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "aeclustering_exact": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     # rows, m, points, n, d, eps2, pflag, plabel (null: count mode), rflag, rlabel, out
     "dbscan_eps": [_P, _I, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    # x, y, valid, r, n, m, w1, off, workspace (null: shared memory), cx, cy,
+    # cvalid, n_dropped
+    "rep_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # blocks, threads, cluster
     "launch_floor": [_I, _I, _I],
 }

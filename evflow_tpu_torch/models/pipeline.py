@@ -7,10 +7,11 @@
   per-event AEClustering engine (the update_slice_pallas kernel's CUDA
   counterpart on the card) -> flow per persistent cluster id;
 - corner+track (`corner_track_step`): SAE scatter-max -> one representative
-  candidate per touched pixel -> eFAST -> stream-order compaction -> NMS ->
-  tracker; at q = 1 the tile-predicated stencil, at q > 1 (micro slices)
-  per sub-slice scatter + detection, or with `micro_stack` one keyed
-  scatter into q stacked surfaces;
+  candidate per touched pixel (csrc/rep_candidates.cu on the card) ->
+  eFAST -> stream-order compaction -> NMS -> tracker; at q = 1 the
+  tile-predicated stencil, at q > 1 (micro slices) per sub-slice scatter +
+  detection, or with `micro_stack` one keyed scatter into q stacked
+  surfaces;
 - `corner_track_step_event_exact`: the per-event-exact detector, the
   reference semantics the q > 1 path is measured against;
 - `full_scan`: both chains per slice over a slice sequence — the main path;
@@ -30,6 +31,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import DEFAULT, EngineConfig
 from ..io.events import EventStream
 from ..io.slicing import slice_by_count, slice_by_time
@@ -304,11 +306,11 @@ def _corners_to_tracks(corner_mask, x, y, state: CornerTrackState, new_sae,
                             slice_idx=state.slice_idx + 1), out
 
 
-@spanned("candidates")
 def _representative_candidates(x, y, valid, m, cfg: EngineConfig):
     """One representative lane per touched pixel — the pixel's LAST event in
     stream order, which carries its newest timestamp — compacted in stream
-    order to m lanes. Returns (cx, cy, cvalid, n_dropped)."""
+    order to m lanes. Returns (cx, cy, cvalid, n_dropped). The plain form of
+    one row of `representative_candidates`."""
     n = x.shape[0]
     w1 = cfg.sensor.width + 1
     off = w1 * (cfg.sensor.height + 1)
@@ -323,6 +325,62 @@ def _representative_candidates(x, y, valid, m, cfg: EngineConfig):
     keep = torch.zeros(n, dtype=torch.bool, device=x.device).scatter(0, order, first)
     cx, cy, cvalid = nms_ops.compact(keep, m, x, y)
     return cx, cy, cvalid, torch.clamp_min(n_rep - m, 0)
+
+
+# bytes of shared memory a CTA of csrc/rep_candidates.cu may take for its
+# table and keys: sm_90's opt-in limit per block, less room for the
+# kernel's static part; a larger row's table goes to a workspace
+_REP_SHARED_BYTES = 232_448 - 1_024
+
+
+def _candidate_rows(r: int, m: int, device):
+    """Uninitialised (cx, cy, cvalid, n_dropped) for r rows of m slots."""
+    return (torch.empty((r, m), dtype=torch.int32, device=device),
+            torch.empty((r, m), dtype=torch.int32, device=device),
+            torch.empty((r, m), dtype=torch.bool, device=device),
+            torch.empty(r, dtype=torch.int32, device=device))
+
+
+def representative_candidates_plain(x, y, valid, m, cfg: EngineConfig):
+    """Plain version of `representative_candidates`:
+    `_representative_candidates` row by row."""
+    out = _candidate_rows(x.shape[0], m, x.device)
+    for k in range(x.shape[0]):
+        for o, v in zip(out, _representative_candidates(x[k], y[k], valid[k], m, cfg)):
+            o[k] = v
+    return out
+
+
+@spanned("candidates")
+def representative_candidates(x, y, valid, m, cfg: EngineConfig):
+    """`_representative_candidates` of each row at once: x, y (R, n) int32
+    and valid (R, n) bool give cx, cy (R, m) int32, cvalid (R, m) bool and
+    n_dropped (R,) int32, row r's equal to the plain form's on row r. CUDA
+    tensors launch csrc/rep_candidates.cu once, a CTA per row, with no sync;
+    CPU tensors take the plain version."""
+    r, n = x.shape
+    kernels.check(x, "x", torch.int32, (r, n))
+    kernels.check(y, "y", torch.int32, (r, n))
+    kernels.check(valid, "valid", torch.bool, (r, n))
+    device = kernels.check_device(x, y, valid)
+    if device < 0:
+        return representative_candidates_plain(x, y, valid, m, cfg)
+    w1 = cfg.sensor.width + 1
+    off = w1 * (cfg.sensor.height + 1)
+    if off >= 2 ** 31:
+        raise ValueError(f"sensor {cfg.sensor} too large for int32 pixel keys")
+    cx, cy, cvalid, n_dropped = out = _candidate_rows(r, m, x.device)
+    if r == 0:
+        return out
+    # a row's hash table (the least power of two >= max(2n, 64) slots, as
+    # the kernel sizes it) and its n keys
+    table = max(64, 1 << (2 * n - 1).bit_length()) + n
+    workspace = (None if 4 * table <= _REP_SHARED_BYTES
+                 else torch.empty(r * table, dtype=torch.int32, device=x.device))
+    kernels.launch("rep_candidates", device, x.data_ptr(), y.data_ptr(), valid.data_ptr(),
+                   r, n, m, w1, off, None if workspace is None else workspace.data_ptr(),
+                   cx.data_ptr(), cy.data_ptr(), cvalid.data_ptr(), n_dropped.data_ptr())
+    return out
 
 
 def corner_track_step(state: CornerTrackState, x: torch.Tensor, y: torch.Tensor,
@@ -345,7 +403,8 @@ def corner_track_step(state: CornerTrackState, x: torch.Tensor, y: torch.Tensor,
         return _micro_step(state, x, y, t, valid, armed, cfg)
     new_sae = sae_ops.update_sae(state.sae, x, y, t, valid)
     if m and m < x.shape[0]:
-        cx, cy, cvalid, n_dropped = _representative_candidates(x, y, valid, m, cfg)
+        cx, cy, cvalid, n_dropped = (a[0] for a in representative_candidates(
+            x[None], y[None], valid[None], m, cfg))
         if cfg.efast.dense_detect:
             corner_mask = efast.detect_corners_dense(
                 new_sae, ev_y=cy, ev_valid=cvalid, x=cx, y=cy, valid=cvalid,
@@ -360,8 +419,9 @@ def corner_track_step(state: CornerTrackState, x: torch.Tensor, y: torch.Tensor,
 
 
 def _micro_step(state: CornerTrackState, x, y, t, valid, armed, cfg: EngineConfig):
-    """The q > 1 serial micro-slice path: per sub-slice, update the SAE,
-    pick at most max(m // q, 64) representative candidates, detect them
+    """The q > 1 serial micro-slice path: at most max(m // q, 64)
+    representative candidates of every sub-slice at once (they read no
+    surface), then per sub-slice, update the SAE and detect its candidates
     against the surface so far (the per-candidate ring gather, or with
     micro_dense the tile-predicated stencil); then the candidates of all
     sub-slices, in order, go to NMS and the tracker. micro_stack (without
@@ -372,25 +432,21 @@ def _micro_step(state: CornerTrackState, x, y, t, valid, armed, cfg: EngineConfi
         return _corners_to_tracks(mask & armed, cx, cy, state, new_sae, cfg, n_dropped)
     nsub = x.shape[0] // q
     m_sub = max(cfg.efast.max_candidates // q, 64)
+    xr, yr, tr, vr = (a.reshape(q, nsub) for a in (x, y, t, valid))
+    cxs, cys, cvs, drops = representative_candidates(xr, yr, vr, m_sub, cfg)
     sae = state.sae
-    cxs, cys, masks, drops = [], [], [], []
+    masks = []
     for k in range(q):
-        sl = slice(k * nsub, (k + 1) * nsub)
-        sx, sy, sv = x[sl], y[sl], valid[sl]
-        sae = sae_ops.update_sae(sae, sx, sy, t[sl], sv)
-        scx, scy, scv, sdrop = _representative_candidates(sx, sy, sv, m_sub, cfg)
+        sae = sae_ops.update_sae(sae, xr[k], yr[k], tr[k], vr[k])
         if cfg.efast.micro_dense:
-            mask = efast.detect_corners_dense(sae, sy, sv, scx, scy, scv,
-                                              cfg.efast, cfg.sensor, ev_x=sx)
+            mask = efast.detect_corners_dense(sae, yr[k], vr[k], cxs[k], cys[k], cvs[k],
+                                              cfg.efast, cfg.sensor, ev_x=xr[k])
         else:
-            mask = efast.detect_corners(sae, scx, scy, scv, cfg.efast, cfg.sensor)
-        cxs.append(scx)
-        cys.append(scy)
+            mask = efast.detect_corners(sae, cxs[k], cys[k], cvs[k], cfg.efast, cfg.sensor)
         masks.append(mask)
-        drops.append(sdrop)
     corner_mask = torch.cat(masks) & armed
-    return _corners_to_tracks(corner_mask, torch.cat(cxs), torch.cat(cys), state,
-                              sae, cfg, torch.stack(drops).sum(dtype=torch.int32))
+    return _corners_to_tracks(corner_mask, cxs.reshape(-1), cys.reshape(-1), state, sae,
+                              cfg, drops.sum(dtype=torch.int32))
 
 
 def stack_detect(sae: torch.Tensor, x, y, t, valid, cfg: EngineConfig):
@@ -421,8 +477,7 @@ def stack_detect(sae: torch.Tensor, x, y, t, valid, cfg: EngineConfig):
         torch.maximum(planes[0], sae, out=planes[0])
         for k in range(1, q):
             torch.maximum(planes[k], planes[k - 1], out=planes[k])
-    cands = [_representative_candidates(xr[k], yr[k], vr[k], m_sub, cfg) for k in range(q)]
-    cxs, cys, cvs, drops = (torch.stack(a) for a in zip(*cands))
+    cxs, cys, cvs, drops = representative_candidates(xr, yr, vr, m_sub, cfg)
     masks = efast.detect_corners_stacked(planes, cxs, cys, cvs, cfg.efast, cfg.sensor)
     return (planes[q - 1].clone(), cxs.reshape(-1), cys.reshape(-1), masks.reshape(-1),
             drops.sum(dtype=torch.int32))

@@ -356,7 +356,7 @@ def test_full_scan_on_card_matches_cpu(cuda):
     (gcl, gco), (gclo, gcoo) = scan(cuda)
     assert kernels.LAUNCHES == {"efast_stencil": 6, "efast_ring": 0, "assign_manhattan": 6,
                                 "cluster_stats": 6, "aeclustering_exact": 0,
-                                "dbscan_eps": 0}, kernels.LAUNCHES
+                                "dbscan_eps": 0, "rep_candidates": 6}, kernels.LAUNCHES
     (wcl, wco), (wclo, wcoo) = scan("cpu")
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
     interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
@@ -693,8 +693,8 @@ def test_neighbor_counts_ignore_matmul_precision(cuda):
 
 def test_stack_path_on_card_matches_cpu(cuda):
     """full_scan at q=8 with micro_stack on the card: the fastcluster
-    kernels launch each slice, the ring test once a slice in the stack
-    form and each sub-slice in the serial form; the corner chain equals the
+    kernels and the candidates launch each slice, the ring test once a
+    slice in the stack form and each sub-slice in the serial form; the corner chain equals the
     card's serial q=8 run bit for bit and the CPU's within the tracker
     tolerance."""
     n = 2048
@@ -723,16 +723,125 @@ def test_stack_path_on_card_matches_cpu(cuda):
     got = scan(cuda, stack)
     assert kernels.LAUNCHES == {"efast_stencil": 0, "efast_ring": 6, "assign_manhattan": 6,
                                 "cluster_stats": 6, "aeclustering_exact": 0,
-                                "dbscan_eps": 0}, kernels.LAUNCHES
+                                "dbscan_eps": 0, "rep_candidates": 6}, kernels.LAUNCHES
     kernels.reset_launches()
     serial = scan(cuda, cfg)
     assert kernels.LAUNCHES["efast_ring"] == 6 * 8, kernels.LAUNCHES
+    assert kernels.LAUNCHES["rep_candidates"] == 6, kernels.LAUNCHES
     interop.assert_trees_close(got, serial, rtol=0, atol=0, what="stack vs serial")
     (gcl, gco), (gclo, gcoo) = got
     (wcl, wco), (wclo, wcoo) = scan("cpu", stack)
     interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
     interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
     assert int(gcoo.num_corners.sum()) > 0
+
+
+# ------------------------------------------------ representative candidates
+
+def _candidate_rows(kind, r, n, m, rng):
+    """(x, y, valid) int32, int32, bool numpy rows on the 1280x720 sensor:
+    `uniform` pixels (more representatives than any cap here), `few` (a
+    10 x 10 box: fewer than m), `exact` (lane % m: m representatives when
+    n >= m), `one-pixel`, `invalid` (no valid lane), `edges` (off the
+    sensor: negative, at and past W and H, beyond H + 1, keys that wrap
+    int32)."""
+    x = rng.integers(0, 1280, (r, n))
+    y = rng.integers(0, 720, (r, n))
+    valid = rng.random((r, n)) < 0.9
+    if kind == "few":
+        x, y = rng.integers(100, 110, (r, n)), rng.integers(50, 60, (r, n))
+    elif kind == "exact":
+        x, y, valid[:] = np.arange(n)[None, :] % m + 0 * x, 3 + 0 * y, True
+    elif kind == "one-pixel":
+        x, y, valid[:] = 640 + 0 * x, 360 + 0 * y, True
+    elif kind == "invalid":
+        valid[:] = False
+    elif kind == "edges":
+        pick = rng.integers(0, 7, (r, n))
+        x = np.where(pick == 1, rng.integers(-4, 0, (r, n)), x)
+        x = np.where(pick == 2, rng.integers(1280, 1284, (r, n)), x)
+        y = np.where(pick == 3, rng.integers(720, 725, (r, n)), y)
+        y = np.where(pick == 4, rng.integers(-3, 0, (r, n)), y)
+        y = np.where(pick == 5, rng.choice([2 ** 31 - 1, -2 ** 31, 1_700_000_000], (r, n)), y)
+        x = np.where(pick >= 5, rng.integers(-2 ** 31, 2 ** 31 - 1, (r, n)), x)
+    return x.astype(np.int32), y.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("r,n,m", [(8, 2048, 1024), (1, 16384, 8192), (3, 100, 256),
+                                   (8, 2048, 64), (2, 20000, 9000)])
+@pytest.mark.parametrize("kind", ["uniform", "few", "exact", "one-pixel", "invalid", "edges"])
+def test_rep_candidates_matches_plain(cuda, r, n, m, kind):
+    """csrc/rep_candidates.cu against the plain form on each row, every
+    output bit-equal, n_dropped included: the q=8 rows and the q=1 row (in
+    shared memory), m > n, a small cap, and rows of 20,000 (the table in a
+    global workspace); representatives fewer than, as many as and more
+    than m."""
+    rng = np.random.default_rng(n + m + len(kind))
+    x, y, valid = _candidate_rows(kind, r, n, m, rng)
+    xs, ys, vs = (torch.as_tensor(a, device=cuda) for a in (x, y, valid))
+    before = kernels.LAUNCHES["rep_candidates"]
+    got = pipeline.representative_candidates(xs, ys, vs, m, DEFAULT)
+    assert kernels.LAUNCHES["rep_candidates"] == before + 1
+    reps = []
+    for k in range(r):
+        want = pipeline._representative_candidates(xs[k], ys[k], vs[k], m, DEFAULT)
+        for name, g, w in zip(("cx", "cy", "cvalid", "n_dropped"), got, want):
+            assert torch.equal(g[k], w), (name, k, int((g[k] != w).sum()))
+        reps.append(int(want[2].sum()) + int(want[3]))
+    if kind == "exact" and n >= m:
+        assert reps == [m] * r
+    if kind == "invalid":
+        assert reps == [0] * r
+
+
+def test_rep_candidates_empty_and_reused_outputs(cuda):
+    """No row launches nothing; a second call over garbage in the caching
+    allocator's blocks still writes every output element."""
+    x = torch.zeros((0, 64), dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["rep_candidates"]
+    cx, cy, cv, nd = pipeline.representative_candidates(
+        x, x, torch.zeros((0, 64), dtype=torch.bool, device=cuda), 32, DEFAULT)
+    assert cx.shape == (0, 32) and nd.shape == (0,)
+    assert kernels.LAUNCHES["rep_candidates"] == before
+    rng = np.random.default_rng(5)
+    x, y, valid = (torch.as_tensor(a, device=cuda) for a in _candidate_rows("few", 8, 2048, 1024, rng))
+    for fill in (0x7f, 0x00):
+        torch.full((1 << 20,), fill, dtype=torch.uint8, device=cuda)   # dirty the pool
+        got = pipeline.representative_candidates(x, y, valid, 1024, DEFAULT)
+        want = pipeline.representative_candidates(x.cpu(), y.cpu(), valid.cpu(), 1024, DEFAULT)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_full_scan_q8_at_hd_track_settings_matches_cpu(cuda):
+    """full_scan at hd_track_q8's settings (DEFAULT at q=8: 1280x720,
+    16384 events, a cap of 1,024 candidates per sub-slice) over 4 slices of
+    the textured scene, where the cap binds: one rep_candidates launch per
+    slice, and the corner chain equal to the CPU run (its counts, drops and
+    track ids exactly, track floats within the suite's tracker tolerance),
+    cluster floats within f32 order."""
+    cfg = dataclasses.replace(DEFAULT, efast=dataclasses.replace(DEFAULT.efast, micro_slices=8))
+    n = cfg.slicing.n_events
+    stream = synthetic.textured_field_stream(num_slices=4, events_per_slice=n, seed=3)
+    sl = slice_by_count(stream, n, drop_partial=True)
+    arrays = (sl.x, sl.y, (sl.t - int(stream.t[0])).astype(np.int32), sl.valid_mask())
+
+    def scan(device):
+        cl = fastcluster.init_state(cfg.cluster, device=device)
+        co = pipeline.init_corner_state(cfg, device=device)
+        return pipeline.full_scan(cl, co, *[torch.as_tensor(a, device=device)
+                                            for a in arrays], cfg)
+
+    kernels.reset_launches()
+    (gcl, gco), (gclo, gcoo) = scan(cuda)
+    assert kernels.LAUNCHES["rep_candidates"] == sl.num_slices, kernels.LAUNCHES
+    assert kernels.LAUNCHES["efast_ring"] == 8 * sl.num_slices, kernels.LAUNCHES
+    (wcl, wco), (wclo, wcoo) = scan("cpu")
+    interop.assert_trees_close((gcl, gclo), (wcl, wclo), rtol=1e-5, atol=1e-3)
+    interop.assert_trees_close((gco, gcoo), (wco, wcoo), rtol=1e-5, atol=1e-4)
+    for name in ("num_corners", "num_filtered", "num_dropped", "track_active", "track_label"):
+        assert torch.equal(getattr(gcoo, name).cpu(), getattr(wcoo, name)), name
+    assert int(gcoo.num_dropped.min()) > 0, gcoo.num_dropped
 
 
 # ---------------------------------------------------------------- app B

@@ -24,6 +24,7 @@ from evflow_tpu.io import EventStream, slice_by_count
 from evflow_tpu.models import fastcluster as jfc, pipeline as jp
 from evflow_tpu_torch import interop
 from evflow_tpu_torch.models import fastcluster, pipeline
+from evflow_tpu_torch.ops import efast, sae as sae_ops
 
 torch.set_num_threads(2)
 
@@ -198,6 +199,114 @@ def test_representative_candidates_oracle():
                                          jnp.asarray(t), jnp.asarray(valid), m, DEFAULT)
     for g, w in zip((cx, cy, cv, nd), want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _rows_oracle(x, y, valid, m, width, height):
+    """The representatives of each row by a dict, keys wrapped to int32 as
+    the port computes them: (cx, cy, cvalid, n_dropped) as numpy arrays."""
+    w1 = width + 1
+    off = w1 * (height + 1)
+    key = (y.astype(np.int64) * w1 + x + 2 ** 31) % 2 ** 32 - 2 ** 31
+    key = np.where(valid, key, off)
+    r = x.shape[0]
+    cx, cy = np.zeros((r, m), np.int32), np.zeros((r, m), np.int32)
+    cv, dropped = np.zeros((r, m), bool), np.zeros(r, np.int32)
+    for k in range(r):
+        last = {}
+        for i, kk in enumerate(key[k]):
+            if kk < off:
+                last[kk] = i
+        lanes = sorted(last.values())
+        kept = lanes[:m]
+        cx[k, :len(kept)], cy[k, :len(kept)] = x[k, kept], y[k, kept]
+        cv[k, :len(kept)] = True
+        dropped[k] = max(len(lanes) - m, 0)
+    return cx, cy, cv, dropped
+
+
+@pytest.mark.parametrize("r,n,m,kind", [
+    (8, 256, 128, "uniform"), (8, 256, 16, "uniform"), (3, 100, 256, "uniform"),
+    (1, 512, 64, "edges"), (4, 300, 300, "edges"), (2, 64, 64, "one-pixel"),
+    (2, 64, 8, "invalid"), (0, 32, 16, "uniform")])
+def test_representative_candidates_rows(r, n, m, kind):
+    """The rows form equals `_representative_candidates` on each row and a
+    dict oracle: uniform pixels (m above, at and below the representatives),
+    coordinates off the sensor (negative, at and past W and H, keys that
+    wrap int32), one pixel in every lane, rows with no valid lane."""
+    width, height = 40, 30
+    cfg = dataclasses.replace(DEFAULT, sensor=SensorConfig(width=width, height=height))
+    rng = np.random.default_rng(r * 1000 + n + m)
+    x = rng.integers(0, width, (r, n)).astype(np.int32)
+    y = rng.integers(0, height, (r, n)).astype(np.int32)
+    valid = rng.random((r, n)) < 0.85
+    if kind == "edges":
+        pick = rng.integers(0, 6, (r, n))
+        x = np.where(pick == 1, rng.integers(-3, 0, (r, n)), x).astype(np.int32)
+        x = np.where(pick == 2, rng.integers(width, width + 3, (r, n)), x).astype(np.int32)
+        y = np.where(pick == 3, rng.integers(height, height + 4, (r, n)), y).astype(np.int32)
+        y = np.where(pick == 4, rng.integers(-2, 0, (r, n)), y).astype(np.int32)
+        big = pick == 5
+        y[big] = rng.choice([2 ** 31 - 1, -2 ** 31, 2 ** 30, 1_700_000_000], big.sum())
+        x[big] = rng.integers(-2 ** 31, 2 ** 31 - 1, big.sum())
+    elif kind == "one-pixel":
+        x[:], y[:], valid[:] = 7, 5, True
+    elif kind == "invalid":
+        valid[:] = False
+    got = pipeline.representative_candidates(
+        torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(valid), m, cfg)
+    assert [tuple(g.shape) for g in got] == [(r, m), (r, m), (r, m), (r,)]
+    assert [g.dtype for g in got] == [torch.int32, torch.int32, torch.bool, torch.int32]
+    for g, w in zip(got, _rows_oracle(x, y, valid, m, width, height)):
+        np.testing.assert_array_equal(g.numpy(), w)
+    for k in range(r):
+        want = pipeline._representative_candidates(
+            torch.as_tensor(x[k]), torch.as_tensor(y[k]), torch.as_tensor(valid[k]), m, cfg)
+        for g, w in zip(got, want):
+            assert torch.equal(g[k], w)
+
+
+def _micro_step_per_sub_slice(state, x, y, t, valid, armed, cfg):
+    """The q > 1 serial step with each sub-slice's candidates picked inside
+    the loop, after its SAE update, one `_representative_candidates` call
+    each: the form the rows call replaced."""
+    q = cfg.efast.micro_slices
+    nsub = x.shape[0] // q
+    m_sub = max(cfg.efast.max_candidates // q, 64)
+    sae = state.sae
+    cxs, cys, masks, drops = [], [], [], []
+    for k in range(q):
+        sl = slice(k * nsub, (k + 1) * nsub)
+        sae = sae_ops.update_sae(sae, x[sl], y[sl], t[sl], valid[sl])
+        scx, scy, scv, sdrop = pipeline._representative_candidates(
+            x[sl], y[sl], valid[sl], m_sub, cfg)
+        masks.append(efast.detect_corners(sae, scx, scy, scv, cfg.efast, cfg.sensor))
+        cxs.append(scx)
+        cys.append(scy)
+        drops.append(sdrop)
+    return pipeline._corners_to_tracks(torch.cat(masks) & armed, torch.cat(cxs),
+                                       torch.cat(cys), state, sae, cfg,
+                                       torch.stack(drops).sum(dtype=torch.int32))
+
+
+@pytest.mark.parametrize("stack", [False, True])
+@pytest.mark.parametrize("cap", [512, 4096])
+def test_micro_step_equals_per_sub_slice_candidates(stack, cap):
+    """q=8 over the scene's slices, serial (`_micro_step`) and stacked
+    (`stack_detect`): every state and output leaf, num_dropped included,
+    equals the step that picked each sub-slice's candidates in its loop;
+    the cap of 64 per sub-slice binds, one of 512 exceeds the 128 lanes."""
+    cfg = dataclasses.replace(CFG, efast=dataclasses.replace(
+        CFG.efast, micro_slices=8, max_candidates=cap, micro_stack=stack))
+    arrays = [torch.as_tensor(a) for a in _slices(4)]
+    got = want = pipeline.init_corner_state(cfg, device="cpu")
+    dropped = 0
+    for s in range(4):
+        x, y, t, v = (a[s] for a in arrays)
+        got, gout = pipeline.corner_track_step(got, x, y, t, v, cfg)
+        want, wout = _micro_step_per_sub_slice(want, x, y, t, v, want.slice_idx > 0, cfg)
+        interop.assert_trees_close((got, gout), (want, wout), rtol=0, atol=0, what=f"slice {s}")
+        dropped += int(gout.num_dropped)
+    assert (dropped > 0) == (cap == 512)
 
 
 def test_compat_stride2_matches_jax():
