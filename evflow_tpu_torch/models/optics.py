@@ -19,7 +19,15 @@ sweep with a priority queue ordered by (reach_dist, point_index)
   - eps estimation from the bounding-box volume and the unit-ball volume
     (hpp:369-387);
   - extraction: the reachability threshold split (hpp:674-690) and the xi
-    steep-area method with its cluster tree (hpp:814-995).
+    steep-area method with its cluster tree (hpp:814-995);
+  - app B on one slice of a stream already on the device (`optics_slice`):
+    K sized exactly on the device, one table, one copy to the host, the
+    native sweep, the split and each cluster's statistics back on the
+    device, under the spans `optics`, `optics.table`, `optics.sweep` and
+    `optics.extract`.
+
+`build_table` is the one choice among the table builders, made on the
+device, that `neighbor_table` and `optics_slice` share.
 
 Selection of the K nearest follows `lax.top_k`: ascending distance, ties
 to the lower column. Every float distance is fp32 and no matmul computes
@@ -37,6 +45,11 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import OpticsConfig
+from ..ops.distance import eps_counts
+from ..ops.segment import masked_segment_sum, segment_mean_points
+from ..utils.profiling import span
+
 
 # --------------------------------------------------------------------------
 # eps estimation (optics.hpp:369-387)
@@ -44,11 +57,15 @@ import torch
 
 def epsilon_estimation(points: np.ndarray, min_pts: int) -> float:
     points = np.asarray(points, dtype=np.float64)
-    n, d = points.shape
+    n = points.shape[0]
     if n <= 1:
         return 0.0
-    bl = points.min(axis=0)
-    tr = points.max(axis=0)
+    return _estimate_eps(points.min(axis=0), points.max(axis=0), n, min_pts)
+
+
+def _estimate_eps(bl: np.ndarray, tr: np.ndarray, n: int, min_pts: int) -> float:
+    """epsilon_estimation from the bounding box's corners and the count."""
+    d = len(bl)
     ext = np.abs(tr - bl)
     volume = float(np.prod(ext)) if d <= 64 else np.inf
     # the direct formula overflows float64 at high d (extent^d at d = 128,
@@ -79,6 +96,12 @@ class NeighborTable(NamedTuple):
 
 def _next_pow2(v: int) -> int:
     return 1 << max(v - 1, 1).bit_length()
+
+
+def k_cap(n: int, k: int) -> int:
+    """The widest table of n rows that OPTICS builds, from a width of k:
+    the (N, K) memory bound, at most 256M entries and K <= 1024."""
+    return max(k, min(1024, (256 << 20) // max(n, 1)))
 
 
 def _nearest(dist: torch.Tensor, k: int):
@@ -281,21 +304,23 @@ def _rank_in_cell(cell_id: torch.Tensor):
     return torch.empty_like(pos).scatter_(0, sl, pos - run_start), pos
 
 
-def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int, max_neighbors: int = 256,
-                   block: int = 4096, max_bucket: int = 1024, max_cells: int = 1 << 22,
-                   allow_projected: bool = False, full_window: bool = False,
-                   full_window_entry_cap: int = 192 << 20,
-                   proj_dims: int = 3) -> Optional[NeighborTable]:
-    """compute_neighbors_grid on (N, d) device points, or None where the
-    grid does not apply. The decision is made on the device: the cells'
-    extent and their largest occupancy are read back as g + 1 integers in
-    one copy, and the points stay where they are. A cell's coordinate is
-    floor((p - min) / eps) in fp32."""
-    n, d = pts.shape
-    if n == 0 or (d > 4 and not allow_projected):
-        return None
-    g = min(d, 4) if d <= 4 else min(proj_dims, 4)
-    eps_t = torch.full((), eps, dtype=torch.float32, device=pts.device)
+class Cells(NamedTuple):
+    """The eps-wide cells of the first g coordinates of (N, d) device
+    points: per point its cell coordinate, id and rank in cell (tensors),
+    and the grid's extent and largest occupancy read back to the host."""
+    cell: torch.Tensor      # int64 (N, g) floor((p - min) / eps) in fp32
+    dims_t: torch.Tensor    # int64 (g,) cells per coordinate
+    strides: torch.Tensor   # int64 (g,) row-major strides of the cell id
+    cell_id: torch.Tensor   # int64 (N,)
+    rank: torch.Tensor      # int64 (N,) rank in cell, in index order
+    dims: tuple             # host ints (g,)
+    occupancy: int          # host int: the fullest cell's point count
+
+
+def grid_cells(pts: torch.Tensor, eps_t: torch.Tensor, g: int) -> Cells:
+    """The cells that the grid and cell-pair tables bucket by, decided on
+    the device: the g extents and the largest occupancy come back as g + 1
+    integers in one copy, and the points stay where they are."""
     mins = pts.amin(0)
     cell = torch.floor((pts[:, :g] - mins[None, :g]) / eps_t).to(torch.int64)
     dims_t = cell.amax(0) + 1
@@ -304,11 +329,30 @@ def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int, max_neighbors: i
     cell_id = (cell * strides).sum(1)
     rank, _ = _rank_in_cell(cell_id)
     head = torch.cat([dims_t, rank.amax()[None] + 1]).tolist()
-    dims = tuple(head[:g])
-    ncells = math.prod(dims)
-    if ncells > max_cells:
+    return Cells(cell, dims_t, strides, cell_id, rank, tuple(head[:g]), head[g])
+
+
+def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int, max_neighbors: int = 256,
+                   block: int = 4096, max_bucket: int = 1024, max_cells: int = 1 << 22,
+                   allow_projected: bool = False, full_window: bool = False,
+                   full_window_entry_cap: int = 192 << 20,
+                   proj_dims: int = 3, cells: Optional[Cells] = None) -> Optional[NeighborTable]:
+    """compute_neighbors_grid on (N, d) device points, or None where the
+    grid does not apply. The decision is made on the device (`grid_cells`,
+    or `cells` where the caller has them for the same g): one read-back
+    of g + 1 integers, and the points stay where they are."""
+    n, d = pts.shape
+    if n == 0 or (d > 4 and not allow_projected):
         return None
-    bucket = _next_pow2(head[g])
+    g = min(d, 4) if d <= 4 else min(proj_dims, 4)
+    eps_t = torch.full((), eps, dtype=torch.float32, device=pts.device)
+    if cells is None or len(cells.dims) != g:
+        cells = grid_cells(pts, eps_t, g)
+    dims = cells.dims
+    ncells = math.prod(dims)
+    if ncells > max_cells or min(dims) < 1:
+        return None
+    bucket = _next_pow2(cells.occupancy)
     if bucket > max_bucket:
         return None
     if (ncells + 1) * (d + 1) * bucket >= 2**31 - 1:
@@ -322,8 +366,9 @@ def grid_neighbors(pts: torch.Tensor, eps: float, min_pts: int, max_neighbors: i
         if m > max_neighbors and min_pts > max_neighbors:
             return None
         select_k = 0 if m <= max_neighbors else min(max(max_neighbors, min_pts), n)
-    return NeighborTable(*_grid_table(pts, cell, cell_id, rank, dims_t, strides, eps_t,
-                                      dims, bucket, min_pts, block, select_k))
+    return NeighborTable(*_grid_table(pts, cells.cell, cells.cell_id, cells.rank, cells.dims_t,
+                                      cells.strides, eps_t, dims, bucket, min_pts, block,
+                                      select_k))
 
 
 def compute_neighbors_grid(points: np.ndarray, eps: float, min_pts: int, *,
@@ -436,34 +481,24 @@ def _cellpair_table(pts: torch.Tensor, mins: torch.Tensor, eps: torch.Tensor, di
     return idx_s[base], dist_s[base], cnt_s[base], core_s[base]
 
 
-def compute_neighbors_cellpair(points: np.ndarray, eps: float, min_pts: int,
-                               max_neighbors: int = 256,
-                               max_bucket: int = 1024,
-                               max_cells: int = 1 << 22,
-                               cellblock: int = 1024,
-                               device="cuda") -> Optional[NeighborTable]:
-    """Cell-pair eps-neighborhoods (see the block comment) of (N, d) numpy
-    points, computed on `device`: the grid path's exact neighbor sets and
-    guards, with None where it does not apply (d > 4, no points, too many
-    cells, an over-full cell, a slot space out of proportion to N or over
-    2 GiB of candidates, min_pts above max_neighbors where selection is
-    needed, a selection wider than 256, or a panel that fits no block of 8
-    cells); the caller falls back. Rows hold the whole masked window when
-    it is at most 4 * max_neighbors wide (and its table at most 4 GiB),
-    else the min(max(max_neighbors, min_pts), N) nearest, sorted."""
-    pts_np = np.asarray(points, dtype=np.float32)
-    pts = torch.as_tensor(pts_np, device=device)
-    n, d = pts_np.shape
+def cellpair_neighbors(pts: torch.Tensor, eps: float, min_pts: int,
+                       max_neighbors: int = 256, max_bucket: int = 1024,
+                       max_cells: int = 1 << 22, cellblock: int = 1024,
+                       cells: Optional[Cells] = None) -> Optional[NeighborTable]:
+    """compute_neighbors_cellpair on (N, d) float32 device points, or None
+    where it does not apply. The decision is made on the device
+    (`grid_cells`, or `cells` where the caller has them for g = d)."""
+    n, d = pts.shape
     if d > 4 or n == 0:
         return None
-    mins = pts_np.min(axis=0)
-    cell_coord = np.floor((pts_np - mins) / np.float32(eps)).astype(np.int64)
-    dims = cell_coord.max(axis=0) + 1
-    ncells = int(np.prod(dims))
-    if ncells > max_cells:
+    eps_t = torch.full((), eps, dtype=torch.float32, device=pts.device)
+    if cells is None or len(cells.dims) != d:
+        cells = grid_cells(pts, eps_t, d)
+    dims = cells.dims
+    ncells = math.prod(dims)
+    if ncells > max_cells or min(dims) < 1:
         return None
-    cell_id = np.ravel_multi_index(cell_coord.T, dims)
-    bucket = _next_pow2(int(np.bincount(cell_id, minlength=ncells).max()))
+    bucket = _next_pow2(cells.occupancy)
     if bucket > max_bucket:
         return None
     m = (3 ** d) * bucket
@@ -489,10 +524,64 @@ def compute_neighbors_cellpair(points: np.ndarray, eps: float, min_pts: int,
         cellblock = max((1 << 28) // (bucket * m * 4), 1)
         if cellblock < 8:
             return None
-    table = _cellpair_table(pts, torch.as_tensor(mins, device=pts.device),
-                            torch.tensor(eps, dtype=torch.float32, device=pts.device),
-                            tuple(int(v) for v in dims), bucket, min_pts, cellblock, select_k)
+    table = _cellpair_table(pts, pts.amin(0), eps_t, tuple(int(v) for v in dims), bucket,
+                            min_pts, cellblock, select_k)
     return NeighborTable(*table)
+
+
+def compute_neighbors_cellpair(points: np.ndarray, eps: float, min_pts: int,
+                               max_neighbors: int = 256,
+                               max_bucket: int = 1024,
+                               max_cells: int = 1 << 22,
+                               cellblock: int = 1024,
+                               device="cuda") -> Optional[NeighborTable]:
+    """Cell-pair eps-neighborhoods (see the block comment) of (N, d) numpy
+    points, computed on `device` (`cellpair_neighbors`): the grid path's
+    exact neighbor sets and guards, with None where it does not apply
+    (d > 4, no points, too many cells, an over-full cell, a slot space out
+    of proportion to N or over 2 GiB of candidates, min_pts above
+    max_neighbors where selection is needed, a selection wider than 256,
+    or a panel that fits no block of 8 cells); the caller falls back. Rows
+    hold the whole masked window when it is at most 4 * max_neighbors wide
+    (and its table at most 4 GiB), else the min(max(max_neighbors,
+    min_pts), N) nearest, sorted."""
+    pts = torch.as_tensor(np.asarray(points, dtype=np.float32), device=device)
+    return cellpair_neighbors(pts, eps, min_pts, max_neighbors, max_bucket, max_cells,
+                              cellblock)
+
+
+def build_table(pts: torch.Tensor, eps: float, min_pts: int, max_neighbors: int = 256,
+                block: int = 2048, method: str = "auto", full_window: bool = False,
+                proj_dims: int = 3) -> NeighborTable:
+    """The one choice of table builder for (N, d) float32 points on their
+    device, made there: "cellpair" (auto at d <= 2), then "grid" (auto up
+    to d = 4; forced, the projected grid beyond), each with its own guards
+    and falling through where it declines (a forced one raises
+    ValueError), else the dense (block, N) panels, whose rows keep the
+    min(max_neighbors, N) nearest. The cell-pair and grid guards read one
+    set of cells back, once."""
+    n, d = pts.shape
+    eps_t = torch.full((), eps, dtype=torch.float32, device=pts.device)
+    table, cells = None, None
+    if method == "cellpair" or (method == "auto" and d <= 2):
+        if n and d <= 4:
+            cells = grid_cells(pts, eps_t, d)
+        table = cellpair_neighbors(pts, eps, min_pts, max_neighbors=max_neighbors, cells=cells)
+        if table is None and method == "cellpair":
+            raise ValueError("cell-pair neighbor search does not apply "
+                             "(dim > 4, degenerate grid, or over-dense cells)")
+    if table is None and method in ("auto", "grid"):
+        table = grid_neighbors(pts, eps, min_pts, max_neighbors=max_neighbors,
+                               full_window=full_window, allow_projected=(method == "grid"),
+                               proj_dims=proj_dims, cells=cells)
+        if table is None and method == "grid":
+            raise ValueError("grid neighbor search does not apply "
+                             "(degenerate grid or over-dense cells)")
+    # "dense", "dense2", "certified", and "auto" where the grids decline
+    # (JAX's certified from 32768 points): one exact dense table
+    if table is None:
+        table = NeighborTable(*_dense_table(pts, eps_t, min(max_neighbors, n), block, min_pts))
+    return table
 
 
 # --------------------------------------------------------------------------
@@ -514,9 +603,10 @@ def neighbor_table(points: np.ndarray, min_pts: int, epsilon: float,
     overflowed it (see there)."""
     points = np.asarray(points, dtype=np.float64)
     n = len(points)
+    pts = (None if method == "sharded"
+           else torch.as_tensor(points.astype(np.float32), device=device))
 
     def build(max_neighbors):
-        table = None
         if method == "sharded":
             # the dense table's rows split over the ranks of the default
             # process group (parallel/batch.py; one rank without one)
@@ -524,37 +614,14 @@ def neighbor_table(points: np.ndarray, min_pts: int, epsilon: float,
             return compute_neighbors_sharded(points, epsilon, min_pts,
                                              max_neighbors=max_neighbors, block=block,
                                              device=device)
-        if method == "cellpair" or (method == "auto" and points.shape[1] <= 2):
-            table = compute_neighbors_cellpair(points, epsilon, min_pts,
-                                               max_neighbors=max_neighbors, device=device)
-            if table is None and method == "cellpair":
-                raise ValueError("cell-pair neighbor search does not apply "
-                                 "(dim > 4, degenerate grid, or over-dense cells)")
-        if table is None and method in ("auto", "grid"):
-            table = compute_neighbors_grid(points, epsilon, min_pts,
-                                           max_neighbors=max_neighbors,
-                                           approx=approx,
-                                           full_window=full_window,
-                                           allow_projected=(method == "grid"),
-                                           proj_dims=proj_dims, device=device)
-            if table is None and method == "grid":
-                raise ValueError("grid neighbor search does not apply "
-                                 "(degenerate grid or over-dense cells)")
-        # "dense", "dense2", "certified", and "auto" where the grids decline
-        # (JAX's certified from 32768 points): one exact dense table
-        if table is None:
-            table = compute_neighbors(points, epsilon, min_pts,
-                                      max_neighbors=max_neighbors, block=block,
-                                      approx=approx, device=device)
-        return table
+        return build_table(pts, epsilon, min_pts, max_neighbors, block, method, full_window,
+                           proj_dims)
 
     table = build(max_neighbors)
     max_cnt = int(table.count.max())
     k_eff = table.idx.shape[1]
     if max_cnt > k_eff:
-        # (N, K) memory bound: at most 256M entries and K <= 1024
-        auto_raise_cap = max(k_eff, min(1024, (256 << 20) // max(n, 1)))
-        k_new = min(_next_pow2(max_cnt), n, auto_raise_cap)
+        k_new = min(_next_pow2(max_cnt), n, k_cap(n, k_eff))
         if k_new > k_eff:
             warnings.warn(
                 f"OPTICS neighbor cap {k_eff} < max neighborhood {max_cnt}; "
@@ -722,6 +789,135 @@ def export_reachability_dists(reach_dists: Sequence[ReachabilityDist],
         for r in reach_dists:
             v = no_dist if r.reach_dist < 0 else r.reach_dist
             f.write(f"{r.point_index};{v}\n")
+
+
+# --------------------------------------------------------------------------
+# App B on one slice of an event stream already on the device
+# --------------------------------------------------------------------------
+
+class OpticsSlice(NamedTuple):
+    order: torch.Tensor         # int32 (N,) valid lanes in reachability order, -1 pad
+    reach: torch.Tensor         # float32 (N,) per lane, -1 unreached or invalid
+    cluster: torch.Tensor       # int32 (N,) per lane, numbered as they start, -1 invalid
+    num_clusters: torch.Tensor  # int32 ()
+    size: torch.Tensor          # int32 (N,) points of cluster j, 0 past num_clusters
+    centroid: torch.Tensor      # float32 (N, 2) mean (x, y) of cluster j
+    variance: torch.Tensor      # float32 (N, 2) population variance of x and of y
+
+
+def _to_host(*tensors):
+    """Device tensors as NumPy: copied into pinned host memory without a
+    wait, then one wait. CPU tensors are returned as they are."""
+    if tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+           for t in tensors]
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [o.numpy() for o in out]
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`, from pinned memory without a wait."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _slice_eps(pts: torch.Tensor, valid: torch.Tensor, min_pts: int) -> float:
+    """epsilon_estimation of the valid points, from their bounding box and
+    count read back in one copy; raises where it is undefined (fewer than
+    two points, or a box of no extent)."""
+    box = torch.cat([torch.where(valid[:, None], pts, torch.inf).amin(0),
+                     torch.where(valid[:, None], pts, -torch.inf).amax(0),
+                     valid.sum()[None].to(torch.float32)]).tolist() if len(pts) else [0] * 5
+    eps = _estimate_eps(np.asarray(box[:2]), np.asarray(box[2:4]), int(box[4]), min_pts)
+    if not eps > 0.0:
+        raise ValueError("no epsilon can be estimated from fewer than two distinct points")
+    return eps
+
+
+def optics_slice(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor, cfg: OpticsConfig,
+                 threshold: float, block: int = 2048) -> OpticsSlice:
+    """App B on one slice (cluster_event_data.cpp:449-527): OPTICS of the
+    (x, y) pixels of the valid events, duplicates kept, then the threshold
+    split and each cluster's size, centroid and variance. Order and reach
+    are those of compute_reachability_dists on the valid points (invalid
+    lanes take no part); the (N,) inputs stay on their device.
+
+    - table (span `optics.table`): every point's inclusive eps-count in one
+      pass (`ops.distance.eps_counts`), its maximum and the valid count read
+      back as two integers, then one table (`build_table`) at K, the next
+      power of two at or above max(max_neighbors, the largest count,
+      min_pts): no neighborhood is truncated. A K past `k_cap` raises;
+    - sweep (span `optics.sweep`): the float32 table, its core distances
+      and its largest count copied to the host at once (a count over the
+      table's width raises), and the native sweep (`native.optics_sweep`);
+    - extract (span `optics.extract`): the order and reach back on the
+      device; a cluster starts at each point of the order whose reach is
+      unreached or at least `threshold` (optics.hpp:674-690); sizes, float32
+      means and two-pass population variances by `ops.segment`.
+
+    The tables of clusters have N rows, since every point may be one.
+    cfg.epsilon <= 0 estimates eps from the valid points' bounding box
+    (`epsilon_estimation`), read back first."""
+    from .. import native
+
+    n = x.shape[0]
+    dev = x.device
+    with span("optics"):
+        pts = torch.stack([x, y], 1).to(torch.float32)
+        with span("optics.table"):
+            eps = float(cfg.epsilon)
+            if eps <= 0.0:
+                eps = _slice_eps(pts, valid, cfg.min_pts)
+            counts = eps_counts(pts, pts, eps, valid, valid, block)
+            # the valid lanes in index order, first
+            pos = torch.cumsum(valid, 0) - 1
+            lanes = torch.full((n + 1,), n, dtype=torch.int64, device=dev).scatter_(
+                0, torch.where(valid, pos, n), torch.arange(n, device=dev))
+            nv, max_count = (torch.stack([valid.sum(), counts.amax().long()]).tolist() if n
+                             else (0, 0))
+            lanes = lanes[:nv]
+            pts_v = pts[lanes]
+            k = min(_next_pow2(max(cfg.max_neighbors, max_count, cfg.min_pts)), max(nv, 1))
+            cap = k_cap(nv, min(cfg.max_neighbors, nv))
+            if max_count > cap:
+                raise RuntimeError(f"OPTICS neighborhood of {max_count} points passes the "
+                                   f"table's cap of {cap} columns at {nv} points")
+            table = build_table(pts_v, eps, cfg.min_pts, k, block) if nv else None
+        with span("optics.sweep"):
+            if nv:
+                idx_h, dist_h, core_h, widest = _to_host(
+                    table.idx, table.dist, table.core_dist, table.count.amax())
+                if int(widest) > idx_h.shape[1]:
+                    raise RuntimeError(f"OPTICS table of {idx_h.shape[1]} columns holds a "
+                                       f"neighborhood of {int(widest)}")
+                order_h, reach_h = native.optics_sweep(idx_h, dist_h, core_h)
+            else:
+                order_h, reach_h = np.zeros(0, np.int64), np.zeros(0, np.float32)
+        with span("optics.extract"):
+            order_v = _to_device(order_h, dev)
+            reach_v = _to_device(reach_h, dev)
+            r_seq = reach_v[order_v].to(torch.float64)
+            start = (r_seq < 0.0) | (r_seq >= threshold)
+            cid_seq = torch.cumsum(start, 0, dtype=torch.int32) - 1
+            cluster_v = torch.empty(nv, dtype=torch.int32, device=dev).scatter_(
+                0, order_v, cid_seq)
+            every = torch.ones(nv, dtype=torch.bool, device=dev)
+            centroid, size = segment_mean_points(pts_v, cluster_v, n, every)
+            dev_v = pts_v - centroid[cluster_v.long()]
+            variance = (masked_segment_sum(dev_v * dev_v, cluster_v, n, every)
+                        / torch.clamp_min(size, 1).to(torch.float32)[:, None])
+            order = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            order[:nv] = lanes[order_v].to(torch.int32)
+            reach = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+            reach[lanes] = reach_v
+            cluster = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            cluster[lanes] = cluster_v
+            num = start.sum(dtype=torch.int32)
+    return OpticsSlice(order=order, reach=reach, cluster=cluster, num_clusters=num, size=size,
+                       centroid=centroid, variance=variance)
 
 
 # --------------------------------------------------------------------------

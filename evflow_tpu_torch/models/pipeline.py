@@ -17,6 +17,8 @@
 - `full_scan`: both chains per slice over a slice sequence — the main path;
 - `dbscan_scan`: app C's DBSCAN on each slice's event pixels
   (`dbscan.dbscan_slice`).
+- `optics_scan`: app B's OPTICS on each slice's event pixels
+  (`optics.optics_slice`).
 
 The JAX package's `lax.scan` over slices is an eager Python loop here.
 Each iteration of a loop over slices is a `slice` span (`utils/profiling`),
@@ -38,7 +40,8 @@ from ..io.slicing import slice_by_count, slice_by_time
 
 from ..ops import efast, hash_dedup, nms as nms_ops, sae as sae_ops
 from ..utils.profiling import span, spanned
-from . import aeclustering, aeclustering_kernel, dbscan, fastcluster, tracker as tracker_mod
+from . import (aeclustering, aeclustering_kernel, dbscan, fastcluster, optics,
+               tracker as tracker_mod)
 
 
 def _as_tensors(device, *arrays):
@@ -623,4 +626,18 @@ def dbscan_scan(state, xs, ys, ts, valids, cfg: EngineConfig = DEFAULT):
     for s in range(xs.shape[0]):
         with span("slice"):
             outs.append(dbscan.dbscan_slice(xs[s], ys[s], valids[s], cfg.dbscan))
+    return state + xs.shape[0], _stack(outs)
+
+
+def optics_scan(state, xs, ys, ts, valids, cfg: EngineConfig = DEFAULT,
+                threshold: float = 10.0):
+    """App B's OPTICS (cfg.optics) on each of (S, N) slices in order, the
+    (x, y) pixels of its valid events, split into clusters at the
+    reachability `threshold`; `ts` is not read. OPTICS carries nothing from
+    one slice to the next, so the state is the int32 count of slices run.
+    Returns (state + S, stacked optics.OpticsSlice)."""
+    outs = []
+    for s in range(xs.shape[0]):
+        with span("slice"):
+            outs.append(optics.optics_slice(xs[s], ys[s], valids[s], cfg.optics, threshold))
     return state + xs.shape[0], _stack(outs)

@@ -35,7 +35,8 @@ _I32, _I64, _P = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
 _DECODE = [_P, _I64, _P, _P, _P, _P, _I64]
 # C signatures: (argtypes, restype) per entry point of each source
 _SIGNATURES = {
-    "optics_sweep": {"optics_sweep": ([_I64, _I64, _P, _P, _P, _P, _P], None)},
+    "optics_sweep": {"optics_sweep": ([_I64, _I64, _P, _P, _P, _P, _P], None),
+                     "optics_sweep_f32": ([_I64, _I64, _P, _P, _P, _P, _P], None)},
     "evio": {"evio_load_csv": ([ctypes.c_char_p, _P, _P, _P, _P, _I64], _I64),
              "evio_decode_evt3": (_DECODE, _I64),
              "evio_decode_evt2": (_DECODE, _I64),
@@ -93,19 +94,25 @@ def evio_lib() -> ctypes.CDLL:
 
 def optics_sweep(nbr_idx: np.ndarray, nbr_dist: np.ndarray, core_dist: np.ndarray):
     """The OPTICS seed-queue sweep over an (N, K) table: (order int64,
-    reach float64, -1 where unreached)."""
+    reach, -1 where unreached). A float32 table (distances and core
+    distances both float32) is swept as it is, with float32 reach; any
+    other is widened to float64, with float64 reach. The order, and the
+    reach's values, are the same either way."""
     n, k = nbr_idx.shape
     if nbr_dist.shape != (n, k) or core_dist.shape != (n,):
         raise ValueError(f"table shapes {nbr_idx.shape}, {nbr_dist.shape}, {core_dist.shape}")
+    f32 = nbr_dist.dtype == np.float32 and core_dist.dtype == np.float32
+    ftype = np.float32 if f32 else np.float64
     nbr_idx = np.ascontiguousarray(nbr_idx, np.int32)
-    nbr_dist = np.ascontiguousarray(nbr_dist, np.float64)
-    core = np.ascontiguousarray(core_dist, np.float64)
+    nbr_dist = np.ascontiguousarray(nbr_dist, ftype)
+    core = np.ascontiguousarray(core_dist, ftype)
     if n and (int(nbr_idx.max(initial=-1)) >= n):
         raise ValueError("neighbor index out of range")
     order = np.empty(n, np.int64)
-    reach = np.empty(n, np.float64)
-    lib().optics_sweep(n, k, nbr_idx.ctypes.data, nbr_dist.ctypes.data, core.ctypes.data,
-                       order.ctypes.data, reach.ctypes.data)
+    reach = np.empty(n, ftype)
+    fn = lib().optics_sweep_f32 if f32 else lib().optics_sweep
+    fn(n, k, nbr_idx.ctypes.data, nbr_dist.ctypes.data, core.ctypes.data,
+       order.ctypes.data, reach.ctypes.data)
     return order, reach
 
 

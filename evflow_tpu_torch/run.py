@@ -8,7 +8,7 @@ Usage:
   python -m evflow_tpu_torch.run corner-track   --input ev.csv [--out frames/]   # app G
   python -m evflow_tpu_torch.run kmeans         [--n 2048]                       # app D
   python -m evflow_tpu_torch.run sampling       --input ev.csv                   # app F
-  python -m evflow_tpu_torch.run optics         --input ev.csv [--eps 10]        # app B
+  python -m evflow_tpu_torch.run optics         --input ev.csv [--eps 10] [--slice-events N]  # app B
   python -m evflow_tpu_torch.run dbscan         --input ev.csv [--eps 20] [--per-slice]  # app C
   python -m evflow_tpu_torch.run temporal       --input ev.csv [--windows 2 --tiles 4 | --exact]
 
@@ -23,10 +23,10 @@ torchrun the world must be windows x tiles, and outside it only a 1 x 1
 grid runs.
 
 The per-slice subcommands (cluster-flow, track-estimate, corner-track,
-temporal, dbscan --per-slice) take `--trace DIR`: the run is recorded with
-torch.profiler and written to DIR/trace.json as a Chrome trace, with the
-program's spans (each slice, module and fixpoint round,
-`utils/profiling.py`) on the card's clock.
+temporal, dbscan --per-slice, optics --slice-events) take `--trace DIR`:
+the run is recorded with torch.profiler and written to DIR/trace.json as a
+Chrome trace, with the program's spans (each slice, module and fixpoint
+round, `utils/profiling.py`) on the card's clock.
 Under torchrun rank 0 writes DIR/trace.json and rank r DIR/rank<r>/trace.json.
 """
 
@@ -217,8 +217,17 @@ def cmd_sampling(args):
 
 
 def cmd_optics(args):
-    """App B: OPTICS reachability clustering + centroid report."""
+    """App B: OPTICS reachability clustering + centroid report. With
+    --slice-events N: OPTICS of each N-event slice (`pipeline.optics_scan`),
+    the report once per slice."""
     from .models import optics
+    if args.slice_events:
+        if (args.chi > 0 or args.export or args.out or args.method != "auto"
+                or args.full_window):
+            sys.exit("error: --slice-events splits at --threshold with the table "
+                     "optics_slice chooses; it takes no --chi, --export, --out, --method "
+                     "or --full-window")
+        return _optics_per_slice(args)
     s = _load(args)
     pts = np.stack([s.x, s.y], axis=1).astype(np.float64)
     rd = optics.compute_reachability_dists(
@@ -251,6 +260,27 @@ def cmd_optics(args):
         pts_per_cluster = [pts[np.asarray(c, int)] for c in clusters]
         plots.draw_2d_clusters(pts_per_cluster).save(
             os.path.join(args.out, "clusters_2d"))
+
+
+def _optics_per_slice(args):
+    from .config import DEFAULT, OpticsConfig
+    from .io import slice_by_count
+    from .models.pipeline import optics_scan
+    dev = args.device
+    sl = slice_by_count(_load(args), args.slice_events)
+    xs, ys, vs = (_tensor(a, dev) for a in (sl.x, sl.y, sl.valid_mask()))
+    cfg = DEFAULT.replace(optics=OpticsConfig(min_pts=args.min_pts, epsilon=args.eps,
+                                              max_neighbors=args.max_neighbors))
+    state = torch.zeros((), dtype=torch.int32, device=dev)
+    _, out = optics_scan(state, xs, ys, None, vs, cfg, args.threshold)
+    k, size = out.num_clusters.cpu().numpy(), out.size.cpu().numpy()
+    cen, var = out.centroid.cpu().numpy(), out.variance.cpu().numpy()
+    for i in range(sl.num_slices):
+        print(f"slice {i}: events={int(sl.count[i])}")
+        print(f"Cluster size : {int(k[i])}")
+        for j in range(int(k[i])):
+            print(f"{j},{int(size[i, j])},{cen[i, j, 0]:g},{cen[i, j, 1]:g},"
+                  f"{var[i, j, 0]:g},{var[i, j, 1]:g}")
 
 
 def cmd_dbscan(args):
@@ -443,7 +473,10 @@ def parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_kmeans)
     p.add_argument("--n", type=int, default=2048)
     add("sampling", cmd_sampling)
-    p = add("optics", cmd_optics)
+    p = add_trace(add("optics", cmd_optics))
+    p.add_argument("--slice-events", type=int, default=0, metavar="N",
+                   help="on event input, cluster each N-event slice "
+                        "(pipeline.optics_scan) and print the report per slice")
     p.add_argument("--method", default="auto",
                    choices=("auto", "cellpair", "grid", "dense", "certified",
                             "sharded"),

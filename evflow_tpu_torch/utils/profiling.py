@@ -2,8 +2,9 @@
 
 `span(name)`, or the decorator `spanned(name)`, marks a stretch of the
 program's host work: the whole of a slice, a module's call (dedup,
-fastcluster, sae, candidates, efast, nms, tracker, exact_engine, dbscan),
-a path inside one (`dbscan.dense`, DBSCAN's dense pass in a slice), or
+fastcluster, sae, candidates, efast, nms, tracker, exact_engine, dbscan,
+optics), a path or stage inside one (`dbscan.dense`, DBSCAN's dense pass
+in a slice; `optics.table`, `optics.sweep` and `optics.extract`), or
 one round of a host-checked fixpoint (`nms.round`,
 `tracker.associate.round`, `tracker.group_seeds.round`, `dbscan.round`),
 so the count of round spans is the round count. While a `torch.profiler`

@@ -145,6 +145,8 @@ TRACED = {
     "temporal-exact": (TEMPORAL_1X1 + ["--exact"], 2, {"dedup", "exact_engine"}),
     "dbscan-per-slice": (["dbscan", "--per-slice"] + DBSCAN_SMALL, 0,
                          {"dbscan", "dbscan.dense", "dbscan.round"}),
+    "optics-slice-events": (["optics", "--slice-events", "1024"], 0,
+                            {"optics", "optics.table", "optics.sweep", "optics.extract"}),
 }
 
 
@@ -191,6 +193,35 @@ def test_cli_dbscan_per_slice(small_stream, capsys):
                         f"centroid=({m[:, 0].mean():.2f},{m[:, 1].mean():.2f})")
     assert k > 0
     assert_lines_match(out, "\n".join(want))
+
+
+def test_cli_optics_slice_events(capsys):
+    """`optics --slice-events N` prints app B's report for each N-event
+    slice of the committed fixture (the last one short), as
+    compute_reachability_dists and get_cluster_indices give it on that
+    slice's events; the whole-file report stays the golden one."""
+    from evflow_tpu_torch.io import load, slice_by_count
+    from evflow_tpu_torch.models import optics
+    out = _run(main, ["optics", "--slice-events", "128", "--input", FIXTURE] + CPU, capsys)
+    sl = slice_by_count(load(FIXTURE), 128)
+    want, most = [], 0
+    for i in range(sl.num_slices):
+        n = int(sl.count[i])
+        pts = np.stack([sl.x[i, :n], sl.y[i, :n]], 1).astype(np.float64)
+        rd = optics.compute_reachability_dists(pts, 2, 10.0, device="cpu")
+        clusters = optics.get_cluster_indices(rd, 10.0)
+        most = max(most, len(clusters))
+        want += [f"slice {i}: events={n}", f"Cluster size : {len(clusters)}"]
+        for j, c in enumerate(clusters):
+            p = pts[np.asarray(c, int)]
+            want.append(f"{j},{len(c)},{p[:, 0].mean():g},{p[:, 1].mean():g},"
+                        f"{p[:, 0].var():g},{p[:, 1].var():g}")
+    assert sl.count.tolist() == [128, 128, 64] and most > 5
+    assert_lines_match(out, "\n".join(want))
+    whole = _run(main, ["optics", "--input", FIXTURE, "--eps", "10", "--threshold", "10"] + CPU,
+                 capsys)
+    with open(ROOT / "tests" / "data" / "golden_optics_data8.txt") as f:
+        assert whole == f.read()
 
 
 def test_cli_optics_chi_and_plots(tmp_path, capsys):

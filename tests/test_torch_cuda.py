@@ -877,6 +877,43 @@ def test_optics_dense_ties_on_card(cuda):
         assert got.idx[0].tolist() == [0] + sorted(tied.tolist())[:7]
 
 
+def test_optics_scan_on_card_matches_cpu(cuda):
+    """App B per slice on two DEFAULT textured slices (a block of lanes
+    invalid in the second): one `dbscan_eps` count launch a slice sizes K,
+    and order, reach, membership, count, sizes and centroids have the CPU
+    run's bits (integer pixels); variances within float32 summation order."""
+    n = DEFAULT.slicing.n_events
+    stream = synthetic.textured_field_stream(num_slices=2, events_per_slice=n, seed=5)
+    sl = slice_by_count(stream, n, drop_partial=True)
+    valid = sl.valid_mask()
+    valid[1, 4000:6000] = False
+    cfg = dataclasses.replace(DEFAULT, optics=dataclasses.replace(DEFAULT.optics, epsilon=10.0))
+
+    def scan(device):
+        xs, ys, vs = (torch.as_tensor(a, device=device) for a in (sl.x, sl.y, valid))
+        state = torch.zeros((), dtype=torch.int32, device=device)
+        return pipeline.optics_scan(state, xs, ys, None, vs, cfg, 10.0)[1]
+
+    kernels.reset_launches()
+    got = scan(cuda)
+    assert kernels.LAUNCHES["dbscan_eps"] == sl.num_slices, kernels.LAUNCHES
+    # a CPU build's first large float32 sqrt may run some threads at reduced
+    # accuracy: one first keeps the compared run on the accurate path
+    torch.sqrt(torch.rand(2048, n))
+    want = scan("cpu")
+    for name in ("order", "reach", "cluster", "num_clusters", "size", "centroid"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    torch.testing.assert_close(got.variance.cpu(), want.variance, rtol=1e-5, atol=1e-5)
+    assert int(want.num_clusters.min()) > 1000
+    # a slice with no valid event, and one with a single one
+    xs = torch.arange(128, device=cuda).reshape(2, 64)
+    vs = torch.zeros((2, 64), dtype=torch.bool, device=cuda)
+    vs[1, 5] = True
+    _, few = pipeline.optics_scan(torch.zeros((), dtype=torch.int32, device=cuda), xs, xs, None,
+                                  vs, cfg, 10.0)
+    assert few.num_clusters.tolist() == [0, 1] and few.order[:, 0].tolist() == [-1, 5]
+
+
 # ---------------------------------------------------------------- the CLI
 
 def test_cli_async_cluster_on_card_matches_cpu(cuda, tmp_path, capsys):
